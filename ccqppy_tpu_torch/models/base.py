@@ -1,0 +1,99 @@
+"""Shared solver machinery: results, configs, convergence criterion.
+
+Port of ``ccqppy_tpu/models/base.py`` with an explicit batch dimension:
+every ``SolveResult`` field carries a leading lane axis, and
+``pg_residual`` is a per-lane norm.
+
+* ``pg_residual`` -- the Mazhar-2015 Eq. 25 normalized projected-gradient
+  residual ``|| (x - proj(x - gd*g)) || / (3 n gd)``, evaluated through each
+  projection's cancellation-free closed form so it stays meaningful in f32.
+* Budget semantics: ``converged := matvecs < max_matvecs`` at exit.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass
+class SolveResult:
+    """Result of a batch of QP solves; every field has a leading lane axis."""
+
+    x: torch.Tensor          # (B, n) solution iterate
+    residual: torch.Tensor   # (B,) final Eq. 25 residual
+    converged: torch.Tensor  # (B,) bool
+    matvecs: torch.Tensor    # (B,) int32 count of operator applications
+    iterations: torch.Tensor # (B,) int32 iteration count
+    solve_time: torch.Tensor # (B,) seconds; filled by timed wrappers, else 0
+    trace: torch.Tensor      # (B, trace_len) residual history; (B, 0) when off
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    """Hyperparameters common to all solvers.
+
+    tol:          desired Eq. 25 residual.
+    max_matvecs:  operator-application budget per lane.
+    gd:           finite-difference probe step of the residual criterion.
+    trace_len:    length of the per-lane residual history (0 = off).
+    """
+
+    tol: float = 1e-8
+    max_matvecs: int = 10_000
+    gd: float = 1e-6
+    trace_len: int = 0
+
+
+def pg_residual(proj, x, g, gd, op=None):
+    """Per-lane normalized projected-gradient residual (Eq. 25): (B,)."""
+    r = proj.pg_residual_vec(x, g, gd)
+    if op is None:
+        return torch.linalg.vector_norm(r, dim=-1) / (3.0 * x.shape[-1])
+    return torch.sqrt(op.dot(r, r)) / (3.0 * op.global_size(x))
+
+
+def make_result(x, residual, matvecs, iterations, max_matvecs, trace=None):
+    B = x.shape[0]
+    return SolveResult(
+        x=x,
+        residual=residual,
+        converged=matvecs < max_matvecs,
+        matvecs=matvecs.to(torch.int32),
+        iterations=iterations.to(torch.int32),
+        solve_time=torch.zeros(B, dtype=x.dtype, device=x.device),
+        trace=trace if trace is not None
+        else torch.zeros((B, 0), dtype=x.dtype, device=x.device),
+    )
+
+
+def init_trace(config, batch, dtype, device):
+    """Residual-history buffer: (B, trace_len) filled with NaN."""
+    return torch.full((batch, config.trace_len), torch.nan, dtype=dtype,
+                      device=device)
+
+
+def record_trace(trace, it, res):
+    """Record each lane's residual at its iteration ``it`` (B,).  Iterations
+    beyond the buffer are dropped; a disabled buffer is returned as is."""
+    if trace.shape[-1] == 0:
+        return trace
+    hit = torch.arange(trace.shape[-1], device=trace.device) == it[:, None]
+    return torch.where(hit, res[:, None].to(trace.dtype), trace)
+
+
+def default_x0(b, x0, proj=None):
+    """x0 = 0 by default; a given x0 is cast to b's dtype.  With ``proj``
+    the start point is projected onto the feasible set."""
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    else:
+        x0 = torch.as_tensor(x0).to(dtype=b.dtype)
+    if proj is not None:
+        x0 = proj.project(x0)
+    return x0
+
+
+def eps_of(x):
+    """10*eps stagnation guard."""
+    return 10 * torch.finfo(x.dtype).eps

@@ -1,0 +1,75 @@
+"""Batched dense GEMV ``y[b] = A[b] @ x[b]``: the solver's only
+operator-sized memory stream.
+
+Port of ``batched_gemv`` in ``ccqppy_tpu/ops/pallas_kernels.py``.  On a
+CUDA tensor the wrapper launches the hand-written Hopper kernel
+``csrc/batched_gemv.cu`` or raises; on a CPU tensor it computes the plain
+version ``batched_gemv_reference``.  No other path exists: a CUDA tensor
+never falls back to the plain version.
+
+Masked tails in the kernel take any n, so the TPU package's
+``padded_batched_gemv`` (padding n to a multiple of 128) has no
+counterpart here.
+"""
+from __future__ import annotations
+
+import torch
+
+from ccqppy_tpu_torch.ops import kernels
+
+#: Number of kernel launches in this process.  Only a CUDA launch adds to
+#: it; the plain version on the CPU does not.
+LAUNCHES = 0
+
+
+def batched_gemv_reference(A, x):
+    """Plain version: f32 products and accumulation (f64 for f64 ``A``).
+    For bf16 ``A``, x is rounded to bf16 first, as the kernel does."""
+    if A.dtype == torch.float64:
+        return torch.einsum("bij,bj->bi", A, x.to(torch.float64))
+    if A.dtype == torch.bfloat16:
+        x = x.to(torch.bfloat16)
+    return torch.einsum("bij,bj->bi", A.to(torch.float32), x.to(torch.float32))
+
+
+def _check(A, x):
+    if A.dim() != 3 or A.shape[1] != A.shape[2]:
+        raise ValueError(f"A must be (B, n, n), got {tuple(A.shape)}")
+    if x.shape != A.shape[:2]:
+        raise ValueError(f"x must be (B, n) = {tuple(A.shape[:2])}, got {tuple(x.shape)}")
+    if A.device != x.device:
+        raise ValueError(f"A on {A.device} but x on {x.device}")
+
+
+def batched_gemv(A, x):
+    """y[b] = A[b] @ x[b] for A (B, n, n) and x (B, n) -> (B, n) float32.
+
+    On CUDA: A is float32 or bfloat16 and x float32, both contiguous, and
+    the kernel runs on the current stream.  On the CPU: the plain version,
+    in any floating dtype.
+    """
+    global LAUNCHES
+    _check(A, x)
+    if A.device.type == "cpu":
+        return batched_gemv_reference(A, x)
+    if A.device.type != "cuda":
+        raise ValueError(f"batched_gemv runs on cuda or cpu, not {A.device}")
+    if A.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the CUDA kernel takes float32 or bfloat16 A, not {A.dtype}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"the CUDA kernel takes float32 x, not {x.dtype}")
+    if not (A.is_contiguous() and x.is_contiguous()):
+        raise ValueError("the CUDA kernel takes contiguous A and x")
+    B, n = x.shape
+    y = torch.empty((B, n), dtype=torch.float32, device=A.device)
+    if B == 0 or n == 0:
+        return y
+    lib = kernels.load()
+    fn = lib.batched_gemv_f32 if A.dtype == torch.float32 else lib.batched_gemv_bf16
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = fn(A.data_ptr(), x.data_ptr(), y.data_ptr(), B, n, stream)
+    if err != 0:
+        raise RuntimeError(f"batched_gemv kernel launch failed with CUDA error {err}")
+    LAUNCHES += 1
+    return y

@@ -1,0 +1,134 @@
+"""The whole slice at small size: both modes of the port wired exactly as
+chip_smoke.py wires them, against the JAX package wired as bench.py wires
+it, in f64 on the CPU, per lane.
+"""
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import ccqppy_tpu as cq
+from ccqppy_tpu.models import PCGConfig as JaxPCGConfig
+from ccqppy_tpu.models.direct import direct_x0 as jax_direct_x0
+from ccqppy_tpu.models.direct import spd_inverse_batch as jax_spd_inverse_batch
+from ccqppy_tpu.parallel import solve_batched_fused_compact as jax_fused_compact
+from ccqppy_tpu_torch.utils.convert import (config_from_jax, problem_from_numpy,
+                                            proj_from_jax)
+from ccqppy_tpu_torch.utils.random_qp import random_qp_batch
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+B, N = 16, 128
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _ensemble(seed):
+    """bench.py's family: A = G G^T + n I, b = -A x_uncon, x_uncon ~ U(-1, 1),
+    with the per-call 1e-3 N(0, 1) perturbation of b."""
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((B, N, N))
+    A = G @ G.transpose(0, 2, 1) + N * np.eye(N)
+    b = -np.einsum("bij,bj->bi", A, rng.uniform(-1, 1, (B, N)))
+    return A, b + 1e-3 * rng.standard_normal((B, N))
+
+
+def _setup(seed, cs):
+    A, b = _ensemble(seed)
+    jproj = cq.box(-jnp.ones(N), jnp.ones(N), dtype=jnp.float64)
+    jcfg = JaxPCGConfig(tol=cs.TOL, max_matvecs=cs.BUDGET)
+    At, bt = problem_from_numpy(A, b, "cpu", torch.float64)
+    return A, b, jproj, jcfg, At, bt, proj_from_jax(jproj), config_from_jax(jcfg)
+
+
+def _assert_lanes_match(rj, rt, extra_matvecs=0):
+    assert bool(np.asarray(rj.converged).all())
+    np.testing.assert_array_equal(rt.converged.numpy(), np.asarray(rj.converged))
+    np.testing.assert_array_equal(rt.matvecs.numpy(), np.asarray(rj.matvecs) + extra_matvecs)
+    np.testing.assert_allclose(rt.x.numpy(), np.asarray(rj.x), rtol=1e-9, atol=1e-11)
+    np.testing.assert_allclose(rt.residual.numpy(), np.asarray(rj.residual),
+                               rtol=0, atol=1e-12)
+
+
+def test_iterative_mode_matches_bench_wiring():
+    cs = _chip_smoke()
+    A, b, jproj, jcfg, At, bt, proj, cfg = _setup(41, cs)
+    Aj, bj = jnp.asarray(A), jnp.asarray(b)
+    diag = jnp.diagonal(Aj, axis1=-2, axis2=-1)
+    rj = jax_fused_compact("pcg", Aj, bj, cs.PHASE1, x0=jnp.clip(-bj / diag, -1.0, 1.0),
+                           proj=jproj, config=jcfg, bucket=cs.BUCKET,
+                           host_fallback=False)
+    rt = cs.run_iterative(At, bt, At.diagonal(dim1=-2, dim2=-1), proj, cfg)
+    _assert_lanes_match(rj, rt)
+
+
+def test_direct_mode_matches_bench_wiring():
+    cs = _chip_smoke()
+    A, b, jproj, jcfg, At, bt, proj, cfg = _setup(42, cs)
+    Aj, bj = jnp.asarray(A), jnp.asarray(b)
+    Ainv_j = jax_spd_inverse_batch(Aj, chunk=128)
+    rj = jax_fused_compact("pcg", Aj, bj, cs.PHASE1_DIRECT,
+                           x0=jax_direct_x0(Ainv_j, bj, jproj), proj=jproj,
+                           config=jcfg, bucket=cs.BUCKET_DIRECT, host_fallback=False)
+    Ainv = cs.spd_inverse_batch(At)
+    np.testing.assert_allclose(Ainv.numpy(), np.asarray(Ainv_j), rtol=1e-10, atol=1e-16)
+    rt = cs.run_direct(Ainv, At, bt, proj, cfg)
+    # bench.py calls the compacted PCG directly; solve_direct_batched adds
+    # the inverse apply to each lane's count.
+    _assert_lanes_match(rj, rt, extra_matvecs=1)
+
+
+def test_audit_agrees_with_solver_residual():
+    cs = _chip_smoke()
+    cs.N = N
+    A, b, jproj, jcfg, At, bt, proj, cfg = _setup(43, cs)
+    rt = cs.run_iterative(At, bt, At.diagonal(dim1=-2, dim2=-1), proj, cfg)
+    np.testing.assert_allclose(cs.audit_residual(At, bt, rt.x).numpy(),
+                               rt.residual.numpy(), rtol=1e-9, atol=1e-15)
+
+
+def test_random_qp_batch_distribution():
+    gen = torch.Generator().manual_seed(0)
+    A, b, x = random_qp_batch(gen, 8, 64, torch.float64, diag_boost=1.0, chunk=3)
+    assert A.shape == (8, 64, 64) and b.shape == (8, 64) and x.shape == (8, 64)
+    np.testing.assert_allclose(A.numpy(), A.mT.numpy(), rtol=1e-13, atol=1e-10)
+    d = A.diagonal(dim1=-2, dim2=-1)
+    assert abs(float(d.mean()) - 2 * 64) < 0.05 * 2 * 64     # E[G G^T]_ii = n, + n
+    assert float(x.abs().max()) <= 1.0
+    np.testing.assert_allclose(b.numpy(), -np.einsum("bij,bj->bi", A.numpy(), x.numpy()),
+                               rtol=1e-12, atol=1e-9)
+    assert float(torch.linalg.eigvalsh(A).min()) >= 64 - 1e-9    # + n I: well conditioned
+    A2, _, _ = random_qp_batch(torch.Generator().manual_seed(0), 8, 64, torch.float64,
+                               diag_boost=1.0, chunk=3)
+    assert torch.equal(A, A2)
+
+
+@pytest.mark.cuda
+def test_slice_on_cuda_matches_cpu_f64():
+    """The port on the card in f32 (through the kernel) against the port on
+    the CPU in f64, same problems."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cs = _chip_smoke()
+    A, b, jproj, jcfg, At, bt, proj, cfg = _setup(44, cs)
+    dev = torch.device("cuda", 0)
+    r64 = cs.run_iterative(At, bt, At.diagonal(dim1=-2, dim2=-1), proj, cfg)
+    A32, b32 = At.float().to(dev), bt.float().to(dev)
+    r32 = cs.run_iterative(A32, b32, A32.diagonal(dim1=-2, dim2=-1),
+                           proj.to(dev).float(), cfg)
+    assert bool(r32.converged.all())
+    # Each solution is within ||g|| / lambda_min(A) <= 3 n tol / n = 3 tol
+    # of the optimum (A = G G^T + n I), so the two are within 6 tol.
+    np.testing.assert_allclose(r32.x.cpu().numpy(), r64.x.numpy(), rtol=0,
+                               atol=6 * cs.TOL)
