@@ -3,10 +3,10 @@
 Port of ``solve_batched``, ``host_compact_finish`` and
 ``solve_batched_fused_compact`` from ``ccqppy_tpu/parallel/batch.py``.
 The port's solvers are batched already, so ``solve_batched`` is a direct
-call.  Compaction gathers the unconverged lanes by plain indexing and
-re-solves exactly those lanes: per-lane results do not depend on the other
-lanes of a batch, so the JAX package's power-of-two padding, which only
-bounded recompilation, is not needed.  Projection parameters are shared by
+call.  Compaction gathers the unconverged lanes (plain indexing of a raw
+stack, ``take`` of an operator) and re-solves exactly those lanes: per-lane
+results do not depend on the other lanes of a batch, so the JAX package's
+power-of-two padding, which only bounded recompilation, is not needed.  Projection parameters are shared by
 all lanes; RNG keys (the SPG solver's) are not ported.
 """
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 
 from ccqppy_tpu_torch.models import SOLVERS
 from ccqppy_tpu_torch.models.base import SolveResult
+from ccqppy_tpu_torch.ops.linop import LinearOperator
 
 
 def _get_solver(solver):
@@ -38,6 +39,13 @@ def solve_batched(solver, A, b, x0=None, proj=None, config=None, keys=None):
     fn = _get_solver(solver)
     kwargs = {} if config is None else {"config": config}
     return fn(A, b, x0=x0, proj=proj, **kwargs)
+
+
+def _gather_A(A, idx):
+    """Lanes ``idx`` of a raw (B, n, n) stack or of an operator."""
+    if isinstance(A, LinearOperator):
+        return A.take(idx)
+    return A[idx]
 
 
 def _scatter(r1, idx, r2):
@@ -67,7 +75,7 @@ def host_compact_finish(run2, A, b, r1, proj, eligible=None):
     idx = torch.nonzero(mask).squeeze(1)
     if idx.numel() == 0:
         return r1
-    return _scatter(r1, idx, run2(A[idx], b[idx], r1.x[idx], proj))
+    return _scatter(r1, idx, run2(_gather_A(A, idx), b[idx], r1.x[idx], proj))
 
 
 def solve_batched_fused_compact(solver, A, b, phase1_matvecs, x0=None,
@@ -81,7 +89,7 @@ def solve_batched_fused_compact(solver, A, b, phase1_matvecs, x0=None,
     scatters the results back.  If more than ``bucket`` lanes miss phase 1,
     the overflow lanes keep their honest phase-1 state (converged=False);
     with ``host_fallback=True`` a further compacted pass finishes them.
-    A: (B, n, n) tensor; the projection is shared by all lanes.
+    A: (B, n, n) tensor or operator; the projection is shared by all lanes.
     """
     if not isinstance(solver, str):
         raise TypeError("solve_batched_fused_compact takes a solver NAME")
@@ -101,7 +109,7 @@ def solve_batched_fused_compact(solver, A, b, phase1_matvecs, x0=None,
     r = fn(A, b, x0=x0, proj=proj, config=cfg1)
     idx = torch.nonzero(~r.converged).squeeze(1)[:int(bucket)]
     if idx.numel() > 0:
-        r = _scatter(r, idx, run2(A[idx], b[idx], r.x[idx], proj))
+        r = _scatter(r, idx, run2(_gather_A(A, idx), b[idx], r.x[idx], proj))
     if not host_fallback:
         return r
     # Overflow lanes spent only the phase-1 budget; lanes that exhausted the

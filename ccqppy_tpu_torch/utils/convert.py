@@ -14,6 +14,7 @@ import torch
 from ccqppy_tpu_torch.models.base import SolverConfig
 from ccqppy_tpu_torch.models.pcg import PCGConfig
 from ccqppy_tpu_torch.ops import projections as P
+from ccqppy_tpu_torch.ops.linop import DenseOperator, SymmetricPackedDense
 
 _CONFIGS = {"SolverConfig": SolverConfig, "PCGConfig": PCGConfig}
 
@@ -24,6 +25,24 @@ def problem_from_numpy(A, b, device, dtype):
     A = torch.as_tensor(np.asarray(A), dtype=dtype, device=device)
     b = torch.as_tensor(np.asarray(b), dtype=dtype, device=device)
     return A.contiguous(), b.contiguous()
+
+
+def operator_from_jax(op, device, dtype):
+    """The port's counterpart of a JAX ``DenseOperator`` or
+    ``SymmetricPackedDense``, with its arrays on ``device`` in ``dtype``.
+    ``Ap``, ``diag``, ``n`` and ``tile`` carry over as they are; a single
+    problem gains a leading lane axis of one.  The arrays are copied."""
+    def tensor(v, batched_dim):
+        t = torch.as_tensor(np.array(v), dtype=dtype, device=device)
+        return (t[None] if t.dim() < batched_dim else t).contiguous()
+
+    name = type(op).__name__
+    if name == "DenseOperator":
+        return DenseOperator(tensor(op.A, 3))
+    if name == "SymmetricPackedDense":
+        return SymmetricPackedDense(tensor(op.Ap, 4), tensor(op.diag, 2),
+                                    int(op.n), int(op.tile))
+    raise NotImplementedError(f"{name} is not ported yet")
 
 
 def _array(v):

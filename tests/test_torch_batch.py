@@ -15,6 +15,7 @@ from ccqppy_tpu.models import PCGConfig as JaxPCGConfig
 from ccqppy_tpu.parallel.batch import solve_batched as jax_solve_batched
 from ccqppy_tpu.parallel.batch import \
     solve_batched_fused_compact as jax_fused_compact
+from ccqppy_tpu_torch.ops.linop import DenseOperator, SymmetricPackedDense
 from ccqppy_tpu_torch.parallel import batch
 from ccqppy_tpu_torch.utils.convert import (config_from_jax, problem_from_numpy,
                                             proj_from_jax)
@@ -106,3 +107,41 @@ def test_rejects_what_is_not_ported_or_invalid():
     with pytest.raises(TypeError):
         batch.solve_batched_fused_compact(batch.SOLVERS["pcg"][0], At, bt, 5,
                                           config=cfg)
+
+
+@pytest.mark.parametrize("kind", ["dense", "packed"])
+def test_compaction_takes_operators(kind):
+    """Both compaction entry points gather the lanes of an operator as they
+    do of a raw stack, and match the raw-stack run per lane.  The dense
+    operator runs the same GEMV, so it matches bitwise; the packed one
+    (N=96 at tile 32: 6 upper tiles) sums in another order, so x agrees to
+    1e-10 and the per-lane counts exactly."""
+    A, b = _problem(25)
+    At, bt = problem_from_numpy(A, b, "cpu", torch.float64)
+    op = DenseOperator(At) if kind == "dense" else SymmetricPackedDense.from_dense(At, tile=32)
+    proj = proj_from_jax(cq.box(-np.ones(N), np.ones(N), dtype=jnp.float64))
+    cfg = batch.SOLVERS["pcg"][1](tol=1e-8, max_matvecs=300)
+    tol = 0 if kind == "dense" else 1e-10
+
+    def assert_same(r_raw, r_op):
+        np.testing.assert_array_equal(r_op.converged.numpy(), r_raw.converged.numpy())
+        np.testing.assert_array_equal(r_op.matvecs.numpy(), r_raw.matvecs.numpy())
+        np.testing.assert_array_equal(r_op.iterations.numpy(), r_raw.iterations.numpy())
+        np.testing.assert_allclose(r_op.x.numpy(), r_raw.x.numpy(), rtol=0, atol=tol)
+
+    for fallback in (False, True):
+        runs = [batch.solve_batched_fused_compact("pcg", a, bt, PHASE1, proj=proj, config=cfg,
+                                                  bucket=BUCKET, host_fallback=fallback)
+                for a in (At, op)]
+        assert BUCKET < int((~runs[0].converged).sum()) or fallback
+        assert_same(*runs)
+
+    cfg1 = batch.SOLVERS["pcg"][1](tol=1e-8, max_matvecs=PHASE1)
+    runs = []
+    for a in (At, op):
+        r1 = batch.solve_batched("pcg", a, bt, proj=proj, config=cfg1)
+        runs.append(batch.host_compact_finish(
+            lambda A2, b2, x02, p2: batch.solve_batched("pcg", A2, b2, x02, p2, cfg),
+            a, bt, r1, proj))
+    assert bool(runs[0].converged.all())
+    assert_same(*runs)

@@ -33,7 +33,8 @@ def test_import_pulls_in_no_jax():
 def test_build_targets_sm_90a_from_repo_sources():
     cmd = kernels.nvcc_command("out.so", kernels.sources())
     assert "arch=compute_90a,code=sm_90a" in cmd
-    assert [Path(s).name for s in cmd if s.endswith(".cu")] == ["batched_gemv.cu"]
+    assert [Path(s).name for s in cmd if s.endswith(".cu")] == [
+        "batched_gemv.cu", "batched_symv.cu"]
     assert all(Path(s).is_relative_to(ROOT / "ccqppy_tpu_torch" / "csrc")
                for s in cmd if s.endswith(".cu"))
 
