@@ -7,11 +7,17 @@ tensors; the batched GEMV and the packed symmetric matvec run as
 hand-written Hopper kernels on CUDA tensors and as their plain PyTorch
 versions on CPU tensors.
 
-* ``ccqppy_tpu_torch.ops``      -- box / bound projections, dense and packed
-                                   symmetric operators, the batched GEMV and
-                                   symv kernels and their build.
+* ``ccqppy_tpu_torch.ops``      -- box, bound, ball and Lorentz-cone
+                                   projections and their blockwise, product
+                                   and segment compositions; dense, packed
+                                   symmetric and spectral operators; the
+                                   batched GEMV and symv kernels and their
+                                   build.
 * ``ccqppy_tpu_torch.models``   -- the verified projected-CG face solver
-                                   (``pcg``) and direct serving (``direct``).
+                                   (``pcg``), MPRGP and MPRGP-BB
+                                   (``mprgp``), strong-convexity accelerated
+                                   projected gradient (``apgd.solve_sc``) and
+                                   direct serving (``direct``).
 * ``ccqppy_tpu_torch.parallel`` -- batched solves with straggler compaction.
 * ``ccqppy_tpu_torch.utils``    -- random QP ensembles, guarded timing, and
                                    conversion of problems, sets and configs
@@ -23,12 +29,18 @@ Gradient convention: ``g = A x + b``.
 __version__ = "0.1.0"
 
 from ccqppy_tpu_torch import models, ops, parallel, utils  # noqa: F401
-from ccqppy_tpu_torch.models import (SOLVERS, PCGConfig, SolveResult,  # noqa: F401
-                                     SolverConfig, pcg)
+from ccqppy_tpu_torch.models import (SOLVERS, APGDSCConfig,  # noqa: F401
+                                     MPRGPBBConfig, MPRGPConfig, PCGConfig,
+                                     SolveResult, SolverConfig, apgd, mprgp, pcg)
 from ccqppy_tpu_torch.ops import projections, symv  # noqa: F401
 from ccqppy_tpu_torch.ops.linop import (DenseOperator, LinearOperator,  # noqa: F401
-                                        SymmetricPackedDense, as_operator)
-from ccqppy_tpu_torch.ops.projections import (BoxProj, IdentityProj,  # noqa: F401
-                                              LowerBoundProj, UpperBoundProj,
-                                              box, identity, lower_bound,
+                                        SpectralDense, SymmetricPackedDense,
+                                        as_operator, estimate_spectral_bounds)
+from ccqppy_tpu_torch.ops.projections import (BallProj, BlockwiseProj,  # noqa: F401
+                                              BoxProj, IdentityProj,
+                                              LorentzConeProj, LowerBoundProj,
+                                              ProductProj, SegmentProj,
+                                              UpperBoundProj, ball, blockwise,
+                                              box, identity, lorentz_cone,
+                                              lower_bound, segment_product,
                                               upper_bound)

@@ -94,6 +94,19 @@ def default_x0(b, x0, proj=None):
     return x0
 
 
+def where_lanes(mask, new, old):
+    """Per lane: ``new`` where ``mask`` (B,), else ``old``; either may carry
+    trailing axes after the lane axis."""
+    ndim = max(new.dim(), old.dim())
+    return torch.where(mask.view(-1, *([1] * (ndim - 1))), new, old)
+
+
+def select_lanes(mask, new, old):
+    """Per lane, every field of the state ``new`` where ``mask`` (B,), else
+    of ``old`` (NamedTuples of tensors with a leading lane axis)."""
+    return type(old)(*(where_lanes(mask, n_, o) for n_, o in zip(new, old)))
+
+
 def eps_of(x):
     """10*eps stagnation guard."""
     return 10 * torch.finfo(x.dtype).eps

@@ -1,8 +1,10 @@
 """PCG -- projected conjugate gradients with active-set restarts, batched.
 
 Port of the plain verified path of ``ccqppy_tpu/models/pcg.py`` (``_solve``;
-see that module for the algorithm and the measurements behind it).  Per
-iteration, for state ``x`` feasible and ``g = A x + b``:
+see that module for the algorithm and the measurements behind it).  On a
+set that is not polyhedral it delegates to fused MPRGP-BB
+(``models/mprgp.py``), as the JAX package does.  Per iteration, for state
+``x`` feasible and ``g = A x + b``:
 
 1. ``Ap = A p``                                   (the only matvec)
 2. ``alpha = min(alpha_cg, alpha_feasible)``
@@ -37,9 +39,11 @@ from typing import NamedTuple
 
 import torch
 
+from ccqppy_tpu_torch.models import mprgp
 from ccqppy_tpu_torch.models.base import (SolverConfig, default_x0, eps_of,
                                           init_trace, make_result,
-                                          pg_residual, record_trace)
+                                          pg_residual, record_trace,
+                                          select_lanes)
 from ccqppy_tpu_torch.ops.linop import as_operator
 from ccqppy_tpu_torch.ops.projections import identity
 
@@ -74,14 +78,10 @@ class _State(NamedTuple):
     trace: torch.Tensor
 
 
-def _select(mask, new, old):
-    """Per lane: ``new`` where ``mask``, else ``old``."""
-    return _State(*(torch.where(mask.view(-1, *([1] * (o.dim() - 1))), n_, o)
-                    for n_, o in zip(new, old)))
-
-
 def solve(A, b, x0=None, proj=None, config: PCGConfig = PCGConfig()):
-    """Projected CG with active-set restarts on a batch of QPs.
+    """Projected CG with active-set restarts on a batch of QPs; on a set
+    that is not polyhedral, fused MPRGP-BB with the same tolerance, budget,
+    gd and trace length.
 
     A: (B, n, n) tensor or operator; b: (B, n); x0: (B, n) or None.
     Returns a ``SolveResult`` whose ``residual`` and ``converged`` come from
@@ -90,9 +90,11 @@ def solve(A, b, x0=None, proj=None, config: PCGConfig = PCGConfig()):
     op = as_operator(A)
     proj = proj if proj is not None else identity()
     if not proj.polyhedral:
-        raise NotImplementedError(
-            "pcg on a curved set delegates to MPRGP-BB, which is not ported "
-            "yet (ROADMAP queue 1 item 10)")
+        # Curved sets break PCG's exact feasible steps and per-coordinate
+        # binding mask; as the JAX package does, delegate to fused MPRGP-BB.
+        cfg = mprgp.MPRGPBBConfig(tol=config.tol, max_matvecs=config.max_matvecs,
+                                  gd=config.gd, trace_len=config.trace_len)
+        return mprgp.solve_bb(op, b, x0, proj, cfg)
     if config.refresh_every > 0:
         raise NotImplementedError(
             "pcg residual replacement (refresh_every > 0) is not ported yet "
@@ -175,7 +177,7 @@ def solve(A, b, x0=None, proj=None, config: PCGConfig = PCGConfig()):
             active = outer & ~s.done
             if not bool(active.any()):
                 break
-            s = _select(active, body(s), s)
+            s = select_lanes(active, body(s), s)
         # Verification sweep for every outer-active lane.
         g_t = op.matvec_exact(s.x) + b
         mv = s.mv + 1
@@ -183,7 +185,7 @@ def solve(A, b, x0=None, proj=None, config: PCGConfig = PCGConfig()):
         # it == o.it: the segment had no room to move (frozen mask or
         # budget); a further segment would spin.
         done = (res_t < tol) | (mv >= budget) | (s.it == o.it)
-        o = _select(outer, _State(s.x, g_t, s.m, s.r, s.p, s.rr, res_t, mv,
+        o = select_lanes(outer, _State(s.x, g_t, s.m, s.r, s.p, s.rr, res_t, mv,
                                   s.it, done, s.trace), o)
 
     result = make_result(o.x, o.res, o.mv, o.it, budget, o.trace)

@@ -1,8 +1,9 @@
 """Linear operators for the QP Hessian ``A``, batched.
 
 Port of the dense family of ``ccqppy_tpu/ops/linop.py``: the
-``LinearOperator`` protocol, ``DenseOperator``, ``SymmetricPackedDense``
-and ``as_operator``.  A dense operator holds a ``(B, n, n)`` stack;
+``LinearOperator`` protocol, ``DenseOperator``, ``SymmetricPackedDense``,
+``SpectralDense`` with ``estimate_spectral_bounds``, and ``as_operator``.
+A dense operator holds a ``(B, n, n)`` stack;
 ``matvec`` maps ``(B, n)`` to ``(B, n)`` through ``ops.gemv.batched_gemv``
 (the hand-written kernel on CUDA, exact fp32 FMA).  The packed symmetric
 operator holds only the upper tiles and applies them through
@@ -147,6 +148,63 @@ class SymmetricPackedDense(LinearOperator):
 
     def take(self, idx):
         return SymmetricPackedDense(self.Ap[idx], self.diag[idx], self.n, self.tile)
+
+
+class SpectralDense(DenseOperator):
+    """Dense stack carrying per-lane spectral bounds: ``L (B,)`` with
+    L >= lambda_max sets the step 1/L of ``apgd.solve_sc``, ``mu (B,)``
+    with mu <= lambda_min its constant momentum.  Build the bounds once per
+    fixed ensemble with ``estimate_spectral_bounds``."""
+
+    def __init__(self, A, L, mu):
+        super().__init__(A)
+        if L.shape != A.shape[:1] or mu.shape != A.shape[:1]:
+            raise ValueError(f"L and mu must be ({A.shape[0]},), got "
+                             f"{tuple(L.shape)} and {tuple(mu.shape)}")
+        self.L, self.mu = L, mu
+
+    def spectral_bounds(self):
+        return self.L, self.mu
+
+    def take(self, idx):
+        return SpectralDense(self.A[idx], self.L[idx], self.mu[idx])
+
+
+def power_spectral_bounds(matvec, v0, iters=32, safety=0.02):
+    """Per-lane ``(L, mu)``, each ``(B,)``, of the operator ``matvec`` by
+    power iteration from ``v0`` (B, n): lambda_max of A, then of ``c I - A``
+    with ``c = 1.01 L`` (whose top eigenvalue is c - lambda_min), each
+    after ``iters`` iterations and widened by ``safety``:
+    ``L = (1 + safety) est``, ``mu = (1 - safety) est``.  2 (iters + 1)
+    matvecs."""
+    tiny = torch.finfo(v0.dtype).tiny
+
+    def lam_max(shift):
+        def apply(v):
+            Av = matvec(v)
+            return torch.where(shift[:, None] > 0, shift[:, None] * v - Av, Av)
+
+        v = v0
+        for _ in range(int(iters)):
+            w = apply(v)
+            v = w / (torch.sqrt((w * w).sum(-1, keepdim=True)) + tiny)
+        return (v * apply(v)).sum(-1)
+
+    L = (1.0 + safety) * lam_max(torch.zeros_like(v0[:, 0]))
+    shift = L * 1.01
+    return L, torch.clamp((1.0 - safety) * (shift - lam_max(shift)), min=0.0)
+
+
+def estimate_spectral_bounds(As, iters=32, safety=0.02):
+    """Per-lane ``(L, mu)``, each ``(B,)``, for a stacked SPD batch
+    ``(B, n, n)``: ``power_spectral_bounds`` from the unit vector of ones,
+    every matvec through ``batched_gemv``.  This is the JAX package's
+    algorithm unchanged: it does not certify the bounds (ROADMAP queue 3).
+    """
+    B, n, _ = As.shape
+    v0 = torch.ones((B, n), dtype=As.dtype, device=As.device) / \
+        torch.sqrt(torch.tensor(n, dtype=As.dtype))
+    return power_spectral_bounds(lambda v: batched_gemv(As, v), v0, iters, safety)
 
 
 def as_operator(A):

@@ -6,8 +6,13 @@ The port's solvers are batched already, so ``solve_batched`` is a direct
 call.  Compaction gathers the unconverged lanes (plain indexing of a raw
 stack, ``take`` of an operator) and re-solves exactly those lanes: per-lane
 results do not depend on the other lanes of a batch, so the JAX package's
-power-of-two padding, which only bounded recompilation, is not needed.  Projection parameters are shared by
-all lanes; RNG keys (the SPG solver's) are not ported.
+power-of-two padding, which only bounded recompilation, is not needed.
+
+Projection parameters are shared by all lanes, or, with
+``proj_batched=True``, carry a leading lane axis on every buffer; they then
+broadcast against the ``(B, n)`` points as they are, and compaction gathers
+them with the lanes (``Projection.take``).  RNG keys (the SPG solver's) are
+not ported.
 """
 from __future__ import annotations
 
@@ -32,10 +37,29 @@ def _no_keys(keys):
                                   "which is not ported yet (ROADMAP queue 1 item 11)")
 
 
-def solve_batched(solver, A, b, x0=None, proj=None, config=None, keys=None):
+def _check_lane_proj(proj, B, proj_batched):
+    """With ``proj_batched``, every projection buffer leads with the lane
+    axis."""
+    if not proj_batched:
+        return
+    bad = {k: tuple(v.shape) for k, v in proj.parameter_buffers()
+           if v.dim() == 0 or v.shape[0] != B}
+    if bad:
+        raise ValueError(f"proj_batched=True needs a leading lane axis of {B} on "
+                         f"every projection parameter: {bad}")
+
+
+def _lane_proj(proj, idx, proj_batched):
+    """The projection for lanes ``idx``."""
+    return proj.take(idx) if proj_batched else proj
+
+
+def solve_batched(solver, A, b, x0=None, proj=None, config=None, keys=None,
+                  proj_batched=False):
     """Solve a batch of QPs: A (B, n, n), b (B, n), x0 (B, n) or None.
     Returns a ``SolveResult`` with a leading lane axis on every field."""
     _no_keys(keys)
+    _check_lane_proj(proj, b.shape[0], proj_batched)
     fn = _get_solver(solver)
     kwargs = {} if config is None else {"config": config}
     return fn(A, b, x0=x0, proj=proj, **kwargs)
@@ -66,21 +90,22 @@ def _scatter(r1, idx, r2):
     )
 
 
-def host_compact_finish(run2, A, b, r1, proj, eligible=None):
+def host_compact_finish(run2, A, b, r1, proj, eligible=None, proj_batched=False):
     """Gather the lanes of ``r1`` selected by ``eligible`` (default: the
     unconverged ones), re-solve them warm-started via
-    ``run2(A2, b2, x02, proj) -> SolveResult`` and scatter the results
-    back."""
+    ``run2(A2, b2, x02, proj2) -> SolveResult`` and scatter the results
+    back.  With ``proj_batched`` the projection's lanes are gathered too."""
     mask = ~r1.converged if eligible is None else eligible
     idx = torch.nonzero(mask).squeeze(1)
     if idx.numel() == 0:
         return r1
-    return _scatter(r1, idx, run2(_gather_A(A, idx), b[idx], r1.x[idx], proj))
+    return _scatter(r1, idx, run2(_gather_A(A, idx), b[idx], r1.x[idx],
+                                  _lane_proj(proj, idx, proj_batched)))
 
 
 def solve_batched_fused_compact(solver, A, b, phase1_matvecs, x0=None,
                                 proj=None, config=None, bucket=256,
-                                host_fallback=True, keys=None):
+                                host_fallback=True, keys=None, proj_batched=False):
     """Two-phase straggler compaction.
 
     Phase 1 solves every lane on a budget of ``phase1_matvecs``.  Phase 2
@@ -89,11 +114,13 @@ def solve_batched_fused_compact(solver, A, b, phase1_matvecs, x0=None,
     scatters the results back.  If more than ``bucket`` lanes miss phase 1,
     the overflow lanes keep their honest phase-1 state (converged=False);
     with ``host_fallback=True`` a further compacted pass finishes them.
-    A: (B, n, n) tensor or operator; the projection is shared by all lanes.
+    A: (B, n, n) tensor or operator; the projection is shared by all lanes,
+    or per lane with ``proj_batched``.
     """
     if not isinstance(solver, str):
         raise TypeError("solve_batched_fused_compact takes a solver NAME")
     _no_keys(keys)
+    _check_lane_proj(proj, b.shape[0], proj_batched)
     remaining = int(config.max_matvecs) - int(phase1_matvecs)
     if remaining < 4:
         raise ValueError(
@@ -109,10 +136,12 @@ def solve_batched_fused_compact(solver, A, b, phase1_matvecs, x0=None,
     r = fn(A, b, x0=x0, proj=proj, config=cfg1)
     idx = torch.nonzero(~r.converged).squeeze(1)[:int(bucket)]
     if idx.numel() > 0:
-        r = _scatter(r, idx, run2(_gather_A(A, idx), b[idx], r.x[idx], proj))
+        r = _scatter(r, idx, run2(_gather_A(A, idx), b[idx], r.x[idx],
+                                  _lane_proj(proj, idx, proj_batched)))
     if not host_fallback:
         return r
     # Overflow lanes spent only the phase-1 budget; lanes that exhausted the
     # full budget keep their honest converged=False.
     eligible = ~r.converged & (r.matvecs < int(config.max_matvecs))
-    return host_compact_finish(run2, A, b, r, proj, eligible=eligible)
+    return host_compact_finish(run2, A, b, r, proj, eligible=eligible,
+                               proj_batched=proj_batched)

@@ -11,12 +11,16 @@ import dataclasses
 import numpy as np
 import torch
 
+from ccqppy_tpu_torch.models.apgd import APGDSCConfig
 from ccqppy_tpu_torch.models.base import SolverConfig
+from ccqppy_tpu_torch.models.mprgp import MPRGPBBConfig, MPRGPConfig
 from ccqppy_tpu_torch.models.pcg import PCGConfig
 from ccqppy_tpu_torch.ops import projections as P
-from ccqppy_tpu_torch.ops.linop import DenseOperator, SymmetricPackedDense
+from ccqppy_tpu_torch.ops.linop import (DenseOperator, SpectralDense,
+                                        SymmetricPackedDense)
 
-_CONFIGS = {"SolverConfig": SolverConfig, "PCGConfig": PCGConfig}
+_CONFIGS = {c.__name__: c for c in (SolverConfig, PCGConfig, APGDSCConfig,
+                                    MPRGPConfig, MPRGPBBConfig)}
 
 
 def problem_from_numpy(A, b, device, dtype):
@@ -28,10 +32,11 @@ def problem_from_numpy(A, b, device, dtype):
 
 
 def operator_from_jax(op, device, dtype):
-    """The port's counterpart of a JAX ``DenseOperator`` or
-    ``SymmetricPackedDense``, with its arrays on ``device`` in ``dtype``.
-    ``Ap``, ``diag``, ``n`` and ``tile`` carry over as they are; a single
-    problem gains a leading lane axis of one.  The arrays are copied."""
+    """The port's counterpart of a JAX ``DenseOperator``,
+    ``SymmetricPackedDense`` or ``SpectralDense``, with its arrays on
+    ``device`` in ``dtype``.  ``Ap``, ``diag``, ``n``, ``tile``, ``L`` and
+    ``mu`` carry over as they are; a single problem gains a leading lane
+    axis of one.  The arrays are copied."""
     def tensor(v, batched_dim):
         t = torch.as_tensor(np.array(v), dtype=dtype, device=device)
         return (t[None] if t.dim() < batched_dim else t).contiguous()
@@ -39,6 +44,8 @@ def operator_from_jax(op, device, dtype):
     name = type(op).__name__
     if name == "DenseOperator":
         return DenseOperator(tensor(op.A, 3))
+    if name == "SpectralDense":
+        return SpectralDense(tensor(op.A, 3), tensor(op.L, 1), tensor(op.mu, 1))
     if name == "SymmetricPackedDense":
         return SymmetricPackedDense(tensor(op.Ap, 4), tensor(op.diag, 2),
                                     int(op.n), int(op.tile))
@@ -50,8 +57,10 @@ def _array(v):
 
 
 def proj_from_jax(proj):
-    """The port's counterpart of a JAX projection, with the same bounds in
-    the same dtype, on the CPU (move it with ``.to(device)``)."""
+    """The port's counterpart of a JAX projection, with the same parameters
+    in the same dtype, on the CPU (move it with ``.to(device)``).  A
+    composition converts its children; a ``SegmentProj`` group keeps its
+    stacked parameters, which broadcast over the group's blocks."""
     name = type(proj).__name__
     if name == "IdentityProj":
         return P.IdentityProj()
@@ -61,6 +70,17 @@ def proj_from_jax(proj):
         return P.LowerBoundProj(_array(proj.lb))
     if name == "UpperBoundProj":
         return P.UpperBoundProj(_array(proj.ub))
+    if name == "BallProj":
+        return P.BallProj(_array(proj.radius), _array(proj.center))
+    if name == "LorentzConeProj":
+        return P.LorentzConeProj(_array(proj.mu))
+    if name == "BlockwiseProj":
+        return P.BlockwiseProj(proj_from_jax(proj.child), proj.block_dim, proj.child_axes)
+    if name == "ProductProj":
+        return P.ProductProj(*((proj_from_jax(c), d) for c, d in zip(proj.children, proj.dims)))
+    if name == "SegmentProj":
+        return P.SegmentProj([proj_from_jax(c) for c in proj.children],
+                             [_array(i) for i in proj.indices], proj.dims)
     raise NotImplementedError(f"{name} is not ported yet")
 
 

@@ -16,9 +16,20 @@ right-hand sides perturbed by 1e-3 N(0, 1) per call.  Three modes:
   call the projected inverse apply, a verification sweep and a compacted
   PCG polish (phase 1 at 3 matvecs, a 64-lane bucket).
 
+A fourth mode, cone, is the cone ensemble of
+``benchmarks/benchmark_cone_ensemble.py`` at its full width: B=1024 QPs of
+n=999 under 333 Lorentz-cone blocks of dimension 3 (mu=1), the same
+Hessian family, tol 1e-5, a 2000-matvec budget, right-hand sides perturbed
+per call.  Its prep is ``estimate_spectral_bounds`` (outside the clock,
+checked on 16 lanes against the plain f64 version and against eigvalsh);
+every call starts from the cone-Jacobi point ``proj(-b / diag A)``.  Two
+runs: (a) ``apgd_sc`` on ``SpectralDense``, the headline; (b) fused
+MPRGP-BB with straggler compaction (phase 1 at 43 matvecs, a 256-lane
+bucket).  Every matvec of the mode is the GEMV kernel.
+
 Steps: build the CUDA kernels from ``ccqppy_tpu_torch/csrc``; hold each
 kernel's entry points against their plain PyTorch versions on the card;
-run the three modes at full width, audit every lane's true residual with
+run the four modes at full width, audit every lane's true residual with
 the plain f64 GEMV of the dense stack, and check that the kernels carried
 each mode (launch counts are zeroed just before a mode and read just after
 it).  Any failed check raises, so the exit code is non-zero.  The last line
@@ -33,13 +44,16 @@ import time
 
 import torch
 
+from ccqppy_tpu_torch.models.apgd import APGDSCConfig
 from ccqppy_tpu_torch.models.base import pg_residual
 from ccqppy_tpu_torch.models.direct import solve_direct_batched, spd_inverse_batch
+from ccqppy_tpu_torch.models.mprgp import MPRGPBBConfig
 from ccqppy_tpu_torch.models.pcg import PCGConfig
 from ccqppy_tpu_torch.ops import gemv, kernels, symv
-from ccqppy_tpu_torch.ops.linop import SymmetricPackedDense
-from ccqppy_tpu_torch.ops.projections import box
-from ccqppy_tpu_torch.parallel import solve_batched_fused_compact
+from ccqppy_tpu_torch.ops.linop import (SpectralDense, SymmetricPackedDense,
+                                        estimate_spectral_bounds)
+from ccqppy_tpu_torch.ops.projections import blockwise, box, lorentz_cone
+from ccqppy_tpu_torch.parallel import solve_batched, solve_batched_fused_compact
 from ccqppy_tpu_torch.utils.benchmark import dense_sweep_bytes, timed_run
 from ccqppy_tpu_torch.utils.random_qp import random_qp_batch
 
@@ -58,6 +72,16 @@ TILE_PACKED = 256  # n = 1000 padded to 1024: 10 tiles, 0.655x the dense bytes
 B_DIRECT = 1024    # As and A^-1 both resident
 PHASE1_DIRECT = 3
 BUCKET_DIRECT = 64
+
+N_CONE = 999       # 333 Lorentz blocks of dimension 3
+B_CONE = 1024
+TOL_CONE = 1e-5
+BUDGET_CONE = 2000
+PHASE1_CONE = 43   # MPRGP-BB: ~p95 of the warm-started sweep count
+BUCKET_CONE = 256
+BOUND_LANES = 16   # lanes whose spectral bounds are checked
+BOUND_TOL = 1e-4   # f32 kernel estimate against the plain f64 estimate, relative
+SPECTRUM_TOL = 0.03  # |L / lambda_max - 1| and |mu / lambda_min - 1|
 
 REPS = 3           # timed reps per mode
 KERNEL_REPS = 25   # timed launches per kernel measurement
@@ -105,6 +129,29 @@ def run_direct(Ainv, As, b, proj, cfg):
                                 bucket=BUCKET_DIRECT, host_fallback=False)
 
 
+def cone_proj(dtype=torch.float32, device=None):
+    """333 Lorentz-cone blocks of dimension 3, mu = 1."""
+    return blockwise(lorentz_cone(1.0, dtype=dtype, device=device), 3)
+
+
+def cone_x0(proj, diag, b):
+    """The cone-Jacobi warm start proj(-b / diag A)."""
+    return proj.project(-b / diag)
+
+
+def run_cone_apgd(sop, b, proj, cfg):
+    """One call of the cone mode's run (a): apgd_sc on SpectralDense."""
+    return solve_batched("apgd_sc", sop, b, x0=cone_x0(proj, sop.diagonal(), b),
+                         proj=proj, config=cfg)
+
+
+def run_cone_mprgp(As, b, diag, proj, cfg):
+    """One call of the cone mode's run (b): fused MPRGP-BB with compaction."""
+    return solve_batched_fused_compact(
+        "mprgp_bb", As, b, PHASE1_CONE, x0=cone_x0(proj, diag, b), proj=proj,
+        config=cfg, bucket=BUCKET_CONE, host_fallback=False)
+
+
 def chunked_f64(plain, *args, chunk=256):
     """A plain version in f64, in lane chunks to bound the f64 copies."""
     return torch.cat([plain(*(a[i:i + chunk].double() for a in args))
@@ -116,10 +163,12 @@ def gemv_f64(A, x):
     return chunked_f64(gemv.batched_gemv_reference, A, x)
 
 
-def audit_residual(As, b, x):
-    """True Eq. 25 residual of every lane in f64, independent of the kernel."""
-    proj64 = box(-torch.ones(N), torch.ones(N), dtype=torch.float64,
-                 device=x.device)
+def audit_residual(As, b, x, proj64=None):
+    """True Eq. 25 residual of every lane in f64, independent of the kernel;
+    the box [-1, 1] unless ``proj64`` (an f64 set) is given."""
+    if proj64 is None:
+        proj64 = box(-torch.ones(N), torch.ones(N), dtype=torch.float64,
+                     device=x.device)
     g = gemv_f64(As, x) + b.double()
     return pg_residual(proj64, x.double(), g, 1e-6)
 
@@ -191,6 +240,33 @@ def check_kernels(gen, dev):
           f"({bf16_bytes / ms_bf16 / 1e6:.1f} GB/s), plain (upcast + einsum) "
           f"{plain_ms_bf16:.4f} ms")
     return {"max_abs_err": f32_abs, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_bounds(As, L, mu):
+    """The prep's (L, mu) on BOUND_LANES lanes: against the plain f64
+    version of the same algorithm (on the CPU, since the kernel takes f32),
+    and against the ends of the spectrum from f64 eigvalsh.  The algorithm
+    does not certify its bounds, so the second check is a band, and the
+    margins are printed."""
+    A64 = As[:BOUND_LANES].double()
+    L64, mu64 = estimate_spectral_bounds(A64.cpu())
+    L, mu = L[:BOUND_LANES].double().cpu(), mu[:BOUND_LANES].double().cpu()
+    err_L = float(((L - L64).abs() / L64).max())
+    err_mu = float(((mu - mu64).abs() / mu64).max())
+    print(f"cone prep: f32 kernel bounds vs plain f64 on {BOUND_LANES} lanes: "
+          f"L rel err {err_L:.3e}, mu rel err {err_mu:.3e}")
+    require(err_L < BOUND_TOL and err_mu < BOUND_TOL,
+            f"spectral bounds: rel err L {err_L}, mu {err_mu} against the f64 plain version")
+    w = torch.linalg.eigvalsh(A64).cpu()
+    r_L, r_mu = L / w[:, -1], mu / w[:, 0]
+    print(f"cone prep vs eigvalsh: L / lambda_max in [{float(r_L.min()):.5f}, "
+          f"{float(r_L.max()):.5f}] (L >= lambda_max on {int((r_L >= 1).sum())} of "
+          f"{BOUND_LANES} lanes); mu / lambda_min in [{float(r_mu.min()):.5f}, "
+          f"{float(r_mu.max()):.5f}] (mu <= lambda_min on {int((r_mu <= 1).sum())} of "
+          f"{BOUND_LANES} lanes)")
+    require(bool(((r_L - 1).abs() < SPECTRUM_TOL).all() & ((r_mu - 1).abs() < SPECTRUM_TOL).all()),
+            f"spectral bounds off the spectrum by more than {SPECTRUM_TOL}: "
+            f"L / lambda_max {r_L.tolist()}, mu / lambda_min {r_mu.tolist()}")
 
 
 def symmetric_batch(gen, dev, B, n, chunk=256):
@@ -276,14 +352,14 @@ def check_symv(gen, dev):
     return measured
 
 
-def check_mode(name, r, As, b, x_true=None):
+def check_mode(name, r, As, b, x_true=None, tol=TOL, proj64=None):
     """Convergence, residual audit and (optionally) the known optimum."""
     require(r.x.shape == b.shape and bool(torch.isfinite(r.x).all()),
             f"{name}: non-finite or misshapen solution")
     conv = float(r.converged.float().mean())
     require(conv == 1.0, f"{name}: convergence {conv} != 1.0")
-    res = float(audit_residual(As, b, r.x).max())
-    require(res <= TOL * 1.05, f"{name}: audited residual {res} above tol")
+    res = float(audit_residual(As, b, r.x, proj64).max())
+    require(res <= tol * 1.05, f"{name}: audited residual {res} above tol")
     if x_true is not None:
         # Unperturbed b: the optimum x_uncon is interior, and a residual of
         # 2e-5 bounds |x - x*| by 3 n tol / lambda_min(A) = 6e-5.
@@ -292,7 +368,8 @@ def check_mode(name, r, As, b, x_true=None):
     return res
 
 
-def run_mode(name, run, As, bs, x_uncon, gen, sweep_bytes, sweeps_floor, count):
+def run_mode(name, run, As, bs, x_uncon, gen, sweep_bytes, sweeps_floor, count,
+             tol=TOL, proj64=None):
     """Warm-up on the unperturbed batch, then REPS timed perturbed calls.
     ``count()`` reads the launch count of the kernel that carries the mode's
     matvecs.  Returns the warm-up call's result."""
@@ -300,7 +377,7 @@ def run_mode(name, run, As, bs, x_uncon, gen, sweep_bytes, sweeps_floor, count):
     before = count()
     r = run(bs)
     torch.cuda.synchronize()
-    check_mode(name, r, As, bs, x_uncon)
+    check_mode(name, r, As, bs, x_uncon, tol, proj64)
     launches = count() - before
     max_mv = int(r.matvecs.max())
     require(launches >= max_mv,
@@ -316,7 +393,7 @@ def run_mode(name, run, As, bs, x_uncon, gen, sweep_bytes, sweeps_floor, count):
                     implied_bytes=sweep_bytes * sweeps_floor,
                     check=lambda r_: require(bool(r_.converged.all()),
                                              f"{name}: a timed rep did not converge"))
-    res = check_mode(name, out.result, As, last["b"])
+    res = check_mode(name, out.result, As, last["b"], tol=tol, proj64=proj64)
     mv = out.result.matvecs.float()
     print(f"{name}: B={B} solves/s {B / out.wall_s:.1f} (min of {REPS} walls "
           f"{[round(w, 5) for w in out.walls]}), p50 matvecs "
@@ -410,6 +487,53 @@ def main():
     require(gemv.LAUNCHES > 0, "the direct mode launched no GEMV kernel")
     require(not any(symv.LAUNCHES.values()), "the direct mode launched a symv kernel")
     gemv_launches += gemv.LAUNCHES
+    del As, bs, x_uncon, Ainv
+    torch.cuda.empty_cache()
+
+    # ---- cone mode ---------------------------------------------------------
+    As, bs, _ = random_qp_batch(gen, B_CONE, N_CONE, torch.float32,
+                                diag_boost=1.0, chunk=256)
+    diag = As.diagonal(dim1=-2, dim2=-1)
+    proj_cone, proj64_cone = cone_proj(device=dev), cone_proj(torch.float64, dev)
+    # The GEMV at the cone width: n = 999 takes the scalar-load path.
+    x = torch.randn((B_CONE, N_CONE), generator=gen, device=dev)
+    y, ref = gemv.batched_gemv(As, x), gemv_f64(As, x)
+    err = rel_err(y, ref)
+    require(err < GEMV_F32_TOL, f"f32 gemv (B={B_CONE}, n={N_CONE}) rel err {err}")
+    gemv_999 = {"max_abs_err": float((y.double() - ref).abs().max()),
+                "ms": time_ms(lambda: gemv.batched_gemv(As, x)),
+                "plain_ms": time_ms(lambda: gemv.batched_gemv_reference(As, x))}
+    del y, ref, x
+    print(f"gemv f32 (B={B_CONE}, n={N_CONE}, scalar loads): rel err {err:.3e}, "
+          f"kernel {gemv_999['ms']:.4f} ms ({As.numel() * 4 / gemv_999['ms'] / 1e6:.1f} GB/s), "
+          f"plain einsum {gemv_999['plain_ms']:.4f} ms "
+          f"({As.numel() * 4 / gemv_999['plain_ms'] / 1e6:.1f} GB/s)")
+
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    L, mu = estimate_spectral_bounds(As, iters=32)
+    torch.cuda.synchronize()
+    print(f"cone: prep estimate_spectral_bounds (B={B_CONE}, n={N_CONE}, 2 x 33 sweeps) "
+          f"{time.perf_counter() - t0:.3f} s")
+    require(gemv.LAUNCHES == 2 * 33, f"the prep launched {gemv.LAUNCHES} GEMV kernels, not 66")
+    check_bounds(As, L, mu)
+    sop = SpectralDense(As, L, mu)
+    run_mode("cone apgd_sc", lambda b: run_cone_apgd(
+                 sop, b, proj_cone, APGDSCConfig(tol=TOL_CONE, max_matvecs=BUDGET_CONE)),
+             As, bs, None, gen, dense_sweep_bytes(B_CONE, N_CONE, 1), 14,
+             lambda: gemv.LAUNCHES, tol=TOL_CONE, proj64=proj64_cone)
+    require(not any(symv.LAUNCHES.values()), "cone run (a) launched a symv kernel")
+    cone_launches = gemv.LAUNCHES
+    zero_counts()
+    run_mode("cone mprgp_bb", lambda b: run_cone_mprgp(
+                 As, b, diag, proj_cone, MPRGPBBConfig(tol=TOL_CONE, max_matvecs=BUDGET_CONE)),
+             As, bs, None, gen, dense_sweep_bytes(B_CONE, N_CONE, 1), 27,
+             lambda: gemv.LAUNCHES, tol=TOL_CONE, proj64=proj64_cone)
+    require(not any(symv.LAUNCHES.values()), "cone run (b) launched a symv kernel")
+    cone_launches += gemv.LAUNCHES
+    print(f"cone: GEMV launches {cone_launches} (prep, both runs' warm-up and timed calls)")
+    gemv_launches += cone_launches
 
     # ``launches`` is each entry's count over the main path's modes (0 for
     # the two symv entries no mode runs); ``kernel_phase_launches`` counts
@@ -420,7 +544,7 @@ def main():
         {"name": "batched_gemv", "route": "cuda",
          "source": "ccqppy_tpu_torch/csrc/batched_gemv.cu",
          "replaces": "ccqppy_tpu/ops/pallas_kernels.py:65",
-         "launches": gemv_launches, **measured},
+         "launches": gemv_launches, **measured, "n999": gemv_999},
         *({"name": name, "route": "cuda", "source": symv_src,
            "replaces": f"ccqppy_tpu/ops/pallas_kernels.py:{line}",
            "launches": symv_launches[name], **measured_symv[name]}

@@ -109,6 +109,36 @@ def test_rejects_what_is_not_ported_or_invalid():
                                           config=cfg)
 
 
+@pytest.mark.parametrize("bucket", [BUCKET, B])
+def test_proj_batched_compaction(bucket):
+    """Per-lane box bounds (a leading lane axis on lb and ub) through fused
+    compaction: the stragglers' bounds are gathered with them, in the bucket
+    and in the host fallback.  Per lane this is the JAX package's two-phase
+    compaction with proj_batched=True."""
+    from ccqppy_tpu.parallel.batch import solve_batched_compact as jax_compact
+
+    A, b = _problem(26)
+    rng = np.random.default_rng(27)
+    lb, ub = -rng.uniform(0.5, 2.0, (B, N)), rng.uniform(0.5, 2.0, (B, N))
+    jproj = cq.box(lb, ub, dtype=jnp.float64)
+    jcfg = JaxPCGConfig(tol=1e-8, max_matvecs=300)
+    rj = jax_compact("pcg", jnp.asarray(A), jnp.asarray(b), PHASE1, proj=jproj,
+                     config=jcfg, proj_batched=True)
+    At, bt = problem_from_numpy(A, b, "cpu", torch.float64)
+    proj = proj_from_jax(jproj)
+    assert proj.lb.shape == (B, N)
+    rt = batch.solve_batched_fused_compact("pcg", At, bt, PHASE1, proj=proj,
+                                           config=config_from_jax(jcfg), bucket=bucket,
+                                           proj_batched=True)
+    assert bool(np.asarray(rj.converged).all())
+    assert BUCKET < int((np.asarray(rj.matvecs) > PHASE1).sum())   # overflow at BUCKET
+    _assert_lanes_match(rj, rt)
+    # Shared bounds where per-lane ones are promised are refused.
+    with pytest.raises(ValueError, match="lane axis"):
+        batch.solve_batched("pcg", At, bt, proj=proj_from_jax(cq.box(-np.ones(N), np.ones(N))),
+                            config=config_from_jax(jcfg), proj_batched=True)
+
+
 @pytest.mark.parametrize("kind", ["dense", "packed"])
 def test_compaction_takes_operators(kind):
     """Both compaction entry points gather the lanes of an operator as they

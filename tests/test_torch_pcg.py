@@ -17,7 +17,7 @@ import jax.numpy as jnp
 import ccqppy_tpu as cq
 from ccqppy_tpu.models import PCGConfig as JaxPCGConfig
 from ccqppy_tpu.parallel.batch import solve_batched
-from ccqppy_tpu_torch.models import pcg
+from ccqppy_tpu_torch.models import mprgp, pcg
 from ccqppy_tpu_torch.models.base import SolverConfig
 from ccqppy_tpu_torch.ops.projections import Projection
 from ccqppy_tpu_torch.utils.convert import (config_from_jax, problem_from_numpy,
@@ -122,14 +122,24 @@ def test_residual_replacement_not_ported():
 
 
 def test_curved_set_not_ported():
+    """A set that is not polyhedral no longer raises: pcg delegates to
+    fused MPRGP-BB with its tolerance, budget, gd and trace length."""
     class Curved(Projection):
         def project(self, x):
             return x
 
+        def max_feasible_step(self, x, p):
+            return torch.full(x.shape[:-1], torch.inf, dtype=x.dtype)
+
     A, b = wishart_box_batch(2, 8, seed=0)
     At, bt = problem_from_numpy(A, b, "cpu", torch.float64)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        pcg.solve(At, bt, proj=Curved())
+    cfg = pcg.PCGConfig(tol=1e-9, max_matvecs=300, trace_len=5, refresh_every=7)
+    r = pcg.solve(At, bt, proj=Curved(), config=cfg)
+    r_mb = mprgp.solve_bb(At, bt, proj=Curved(),
+                          config=mprgp.MPRGPBBConfig(tol=1e-9, max_matvecs=300, trace_len=5))
+    assert bool(r.converged.all())
+    for f in ("x", "residual", "matvecs", "iterations", "trace"):
+        assert torch.equal(getattr(r, f), getattr(r_mb, f))
 
 
 def test_config_carries_over_field_for_field():

@@ -1,6 +1,7 @@
-"""The whole slice at small size: both modes of the port wired exactly as
-chip_smoke.py wires them, against the JAX package wired as bench.py wires
-it, in f64 on the CPU, per lane.
+"""The whole slice at small size: the modes of the port wired exactly as
+chip_smoke.py wires them, against the JAX package wired as bench.py (box
+modes) and benchmarks/benchmark_cone_ensemble.py (cone mode) wire it, in
+f64 on the CPU, per lane.
 """
 import importlib.util
 from pathlib import Path
@@ -9,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import ccqppy_tpu as cq
@@ -95,6 +97,80 @@ def test_audit_agrees_with_solver_residual():
     rt = cs.run_iterative(At, bt, At.diagonal(dim1=-2, dim2=-1), proj, cfg)
     np.testing.assert_allclose(cs.audit_residual(At, bt, rt.x).numpy(),
                                rt.residual.numpy(), rtol=1e-9, atol=1e-15)
+
+
+B_CONE, N_CONE = 8, 99
+
+
+def _cone_setup(seed, cs):
+    """The cone benchmark's family at B=8, n=99 (33 Lorentz blocks, mu=1),
+    its tol and budget, and b perturbed as per call."""
+    from ccqppy_tpu.ops import projections as JP
+    from ccqppy_tpu.ops.linop import estimate_spectral_bounds
+
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((B_CONE, N_CONE, N_CONE))
+    A = G @ G.transpose(0, 2, 1) + N_CONE * np.eye(N_CONE)
+    b = -np.einsum("bij,bj->bi", A, rng.uniform(-1, 1, (B_CONE, N_CONE)))
+    b = b + 1e-3 * rng.standard_normal(b.shape)
+    Aj, bj = jnp.asarray(A), jnp.asarray(b)
+    jproj = JP.blockwise(JP.lorentz_cone(1.0, dtype=jnp.float64), 3)
+    diag = jnp.diagonal(Aj, axis1=-2, axis2=-1)
+    jx0 = jax.vmap(jproj.project)(-bj / diag)
+    At, bt = problem_from_numpy(A, b, "cpu", torch.float64)
+    proj = cs.cone_proj(torch.float64)
+    assert proj_from_jax(jproj).child.mu == proj.child.mu
+    return Aj, bj, jproj, jx0, estimate_spectral_bounds(Aj), At, bt, proj
+
+
+def test_cone_apgd_matches_benchmark_wiring():
+    """Run (a) of the cone mode: the spectral prep and apgd_sc from the
+    cone-Jacobi start, against the JAX package wired as
+    benchmarks/benchmark_cone_ensemble.py wires it."""
+    from ccqppy_tpu.models import APGDSCConfig as JaxAPGDSCConfig
+    from ccqppy_tpu.ops.linop import SpectralDense as JaxSpectralDense
+    from ccqppy_tpu.parallel import solve_batched as jax_solve_batched
+    from ccqppy_tpu_torch.ops.linop import SpectralDense, estimate_spectral_bounds
+
+    cs = _chip_smoke()
+    Aj, bj, jproj, jx0, (Lj, muj), At, bt, proj = _cone_setup(51, cs)
+    jcfg = JaxAPGDSCConfig(tol=cs.TOL_CONE, max_matvecs=cs.BUDGET_CONE)
+    rj = jax_solve_batched("apgd_sc", JaxSpectralDense(Aj, Lj, muj), bj, x0=jx0,
+                           proj=jproj, config=jcfg)
+    L, mu = estimate_spectral_bounds(At, iters=32)
+    np.testing.assert_allclose(L.numpy(), np.asarray(Lj), rtol=1e-12)
+    rt = cs.run_cone_apgd(SpectralDense(At, L, mu), bt, proj, config_from_jax(jcfg))
+    _assert_lanes_match(rj, rt)
+    np.testing.assert_allclose(
+        cs.audit_residual(At, bt, rt.x, proj).numpy(), rt.residual.numpy(),
+        rtol=1e-9, atol=1e-15)
+
+
+@pytest.mark.parametrize("phase1", [None, 30])
+def test_cone_mprgp_compaction_matches_benchmark_wiring(phase1, monkeypatch):
+    """Run (b) of the cone mode: fused MPRGP-BB with straggler compaction,
+    at the mode's phase-1 budget and at one that leaves stragglers.  On the
+    cone, x and the residual agree to 1e-8 (tests/test_torch_mprgp.py)."""
+    from ccqppy_tpu.models import MPRGPBBConfig as JaxMPRGPBBConfig
+
+    cs = _chip_smoke()
+    if phase1 is not None:
+        monkeypatch.setattr(cs, "PHASE1_CONE", phase1)
+    Aj, bj, jproj, jx0, _, At, bt, proj = _cone_setup(52, cs)
+    jcfg = JaxMPRGPBBConfig(tol=cs.TOL_CONE, max_matvecs=cs.BUDGET_CONE, fused=True)
+    rj = jax_fused_compact("mprgp_bb", Aj, bj, cs.PHASE1_CONE, x0=jx0, proj=jproj,
+                           config=jcfg, bucket=cs.BUCKET_CONE, host_fallback=False)
+    rt = cs.run_cone_mprgp(At, bt, At.diagonal(dim1=-2, dim2=-1), proj,
+                           config_from_jax(jcfg))
+    assert bool(np.asarray(rj.converged).all())
+    if phase1 is not None:
+        assert int((np.asarray(rj.matvecs) > phase1).sum()) > 0      # stragglers
+    np.testing.assert_array_equal(rt.converged.numpy(), np.asarray(rj.converged))
+    np.testing.assert_array_equal(rt.matvecs.numpy(), np.asarray(rj.matvecs))
+    np.testing.assert_array_equal(rt.iterations.numpy(), np.asarray(rj.iterations))
+    np.testing.assert_allclose(rt.x.numpy(), np.asarray(rj.x), rtol=0, atol=1e-8)
+    np.testing.assert_allclose(rt.residual.numpy(), np.asarray(rj.residual),
+                               rtol=0, atol=1e-8)
 
 
 def test_random_qp_batch_distribution():
