@@ -7,9 +7,9 @@ CUDA tensor the wrapper launches the hand-written Hopper kernel
 version ``batched_gemv_reference``.  No other path exists: a CUDA tensor
 never falls back to the plain version.
 
-Masked tails in the kernel take any n, so the TPU package's
-``padded_batched_gemv`` (padding n to a multiple of 128) has no
-counterpart here.
+The kernel takes any n and any base alignment of A and x through one
+code path, so the TPU package's ``padded_batched_gemv`` (padding n to a
+multiple of 128) has no counterpart here.
 """
 from __future__ import annotations
 
@@ -41,6 +41,17 @@ def _check(A, x):
         raise ValueError(f"A on {A.device} but x on {x.device}")
 
 
+def _check_kernel_operands(A, x):
+    """What the CUDA kernel takes beyond ``_check``: float32 or bfloat16 A,
+    float32 x, both contiguous (at any storage offset)."""
+    if A.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the CUDA kernel takes float32 or bfloat16 A, not {A.dtype}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"the CUDA kernel takes float32 x, not {x.dtype}")
+    if not (A.is_contiguous() and x.is_contiguous()):
+        raise ValueError("the CUDA kernel takes contiguous A and x")
+
+
 def batched_gemv(A, x):
     """y[b] = A[b] @ x[b] for A (B, n, n) and x (B, n) -> (B, n) float32.
 
@@ -54,12 +65,7 @@ def batched_gemv(A, x):
         return batched_gemv_reference(A, x)
     if A.device.type != "cuda":
         raise ValueError(f"batched_gemv runs on cuda or cpu, not {A.device}")
-    if A.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the CUDA kernel takes float32 or bfloat16 A, not {A.dtype}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"the CUDA kernel takes float32 x, not {x.dtype}")
-    if not (A.is_contiguous() and x.is_contiguous()):
-        raise ValueError("the CUDA kernel takes contiguous A and x")
+    _check_kernel_operands(A, x)
     B, n = x.shape
     y = torch.empty((B, n), dtype=torch.float32, device=A.device)
     if B == 0 or n == 0:

@@ -28,11 +28,13 @@ MPRGP-BB with straggler compaction (phase 1 at 43 matvecs, a 256-lane
 bucket).  Every matvec of the mode is the GEMV kernel.
 
 Steps: build the CUDA kernels from ``ccqppy_tpu_torch/csrc``; hold each
-kernel's entry points against their plain PyTorch versions on the card;
-run the four modes at full width, audit every lane's true residual with
-the plain f64 GEMV of the dense stack, and check that the kernels carried
-each mode (launch counts are zeroed just before a mode and read just after
-it).  Any failed check raises, so the exit code is non-zero.  The last line
+kernel's entry points against their plain PyTorch versions on the card
+(the GEMV also on A and x at storage offsets of 1-3 elements, bitwise);
+time the GEMV against ``einsum`` in interleaved pairs at five shapes
+("gemv pairs"); run the four modes at full width, audit every lane's true
+residual with the plain f64 GEMV of the dense stack, and check that the
+kernels carried each mode (launch counts are zeroed just before a mode
+and read just after it).  Any failed check raises, so the exit code is non-zero.  The last line
 of standard output is one JSON object naming the device.
 
 Run:  python3 chip_smoke.py      (needs one CUDA GPU, nvcc for sm_90a)
@@ -89,6 +91,14 @@ KERNEL_REPS = 25   # timed launches per kernel measurement
 GEMV_F32_TOL = 1e-5    # max|y - y_ref| / max|y_ref| against the f64 plain version
 GEMV_BF16_TOL = 2e-2   # bf16 A against the f64 GEMV of the f32 A (quantization)
 GEMV_BF16_PLAIN_TOL = 1e-5  # bf16 kernel against the plain bf16 version
+# (A, x) storage offsets in elements of the GEMV's bitwise check.
+GEMV_OFFSETS = ((1, 0), (2, 3), (3, 1), (0, 2))
+PAIR_ROUNDS = 10       # interleaved rounds of kernel, then plain version
+# (B, n, dtype) of the pairs: the iterative phase 1, the cone runs, the two
+# phase-2 straggler buckets (PERF.md section 5), and bf16 A.
+PAIR_SHAPES = ((B_ITER, N, torch.float32), (B_CONE, N_CONE, torch.float32),
+               (120, N, torch.float32), (41, N_CONE, torch.float32),
+               (B_ITER, N, torch.bfloat16))
 SYMV_TOL = 1e-5        # max rel err against the f64 plain version (the JAX bound)
 # (B, n, tile) of the symv checks; the last is the packed mode's shape.
 SYMV_SHAPES = ((3, 512, 128), (3, 512, 256), (2, 1024, 512), (2048, 1024, 256))
@@ -194,19 +204,46 @@ def rel_err(y, ref):
     return float((y.double() - ref).abs().max() / ref.abs().max())
 
 
+def offset_view(t, offset):
+    """t's values as a contiguous view ``offset`` elements into a larger
+    buffer, so its base is aligned as the offset makes it; NaN before the
+    view and in the 16 bytes after it."""
+    pad = 16 // t.element_size()
+    buf = torch.full((offset + t.numel() + pad,), torch.nan, dtype=t.dtype, device=t.device)
+    buf[offset:offset + t.numel()] = t.reshape(-1)
+    return buf[offset:offset + t.numel()].view(t.shape)
+
+
+def check_offsets(name, A, x, y):
+    """The GEMV of A and x at the storage offsets GEMV_OFFSETS is bitwise y:
+    the alignment changes nothing, and no value from outside A or x (NaN
+    there) enters."""
+    for a_off, x_off in GEMV_OFFSETS:
+        y_off = gemv.batched_gemv(offset_view(A, a_off), offset_view(x, x_off))
+        require(torch.equal(bits(y_off), bits(y)),
+                f"{name}: A at offset {a_off}, x at {x_off} changed y")
+    print(f"{name}: bitwise equal at (A, x) storage offsets {GEMV_OFFSETS}")
+
+
 def check_kernels(gen, dev):
     """Kernel against plain version on the card; returns the measurements."""
     before = gemv.LAUNCHES
     for B, n in ((3, 999), (3, 37), (BUCKET, N)):
         A = torch.randn((B, n, n), generator=gen, device=dev)
         x = torch.randn((B, n), generator=gen, device=dev)
-        err = rel_err(gemv.batched_gemv(A, x), gemv_f64(A, x))
+        y = gemv.batched_gemv(A, x)
+        err = rel_err(y, gemv_f64(A, x))
         print(f"gemv f32 B={B} n={n}: rel err {err:.3e}")
         require(err < GEMV_F32_TOL, f"f32 gemv (B={B}, n={n}) rel err {err}")
         Ab = A.to(torch.bfloat16)
-        err = rel_err(gemv.batched_gemv(Ab, x), gemv.batched_gemv_reference(Ab, x).double())
+        yb = gemv.batched_gemv(Ab, x)
+        err = rel_err(yb, gemv.batched_gemv_reference(Ab, x).double())
         print(f"gemv bf16 B={B} n={n}: rel err vs plain bf16 {err:.3e}")
         require(err < GEMV_BF16_PLAIN_TOL, f"bf16 gemv (B={B}, n={n}) rel err {err}")
+        if n != 37:
+            check_offsets(f"gemv f32 B={B} n={n}", A, x, y)
+            check_offsets(f"gemv bf16 B={B} n={n}", Ab, x, yb)
+        del A, x, y, Ab, yb
 
     B, n = B_ITER, N
     A = torch.randn((B, n, n), generator=gen, device=dev)
@@ -240,6 +277,38 @@ def check_kernels(gen, dev):
           f"({bf16_bytes / ms_bf16 / 1e6:.1f} GB/s), plain (upcast + einsum) "
           f"{plain_ms_bf16:.4f} ms")
     return {"max_abs_err": f32_abs, "ms": ms, "plain_ms": plain_ms}
+
+
+def gemv_pairs(gen, dev):
+    """The GEMV kernel against its plain version (``einsum``; for bf16 A the
+    upcast and ``einsum``) at PAIR_SHAPES: PAIR_ROUNDS interleaved rounds,
+    each the kernel then the plain version, each ``time_ms``.  Returns one
+    record per shape: the medians over the rounds, GB/s of A, and the
+    min / median / max of the per-round ratio kernel / plain."""
+    pairs = []
+    for B, n, dtype in PAIR_SHAPES:
+        A = torch.randn((B, n, n), generator=gen, device=dev).to(dtype)
+        x = torch.randn((B, n), generator=gen, device=dev)
+        kern, plain = [], []
+        for _ in range(PAIR_ROUNDS):
+            kern.append(time_ms(lambda: gemv.batched_gemv(A, x)))
+            plain.append(time_ms(lambda: gemv.batched_gemv_reference(A, x)))
+        ratios = sorted(k / p for k, p in zip(kern, plain))
+        nbytes = A.numel() * A.element_size()
+        ms, plain_ms = statistics.median(kern), statistics.median(plain)
+        rec = {"B": B, "n": n, "dtype": str(dtype).removeprefix("torch."),
+               "rounds": PAIR_ROUNDS, "ms": ms, "plain_ms": plain_ms,
+               "gbps": nbytes / ms / 1e6, "plain_gbps": nbytes / plain_ms / 1e6,
+               "ratio_min": ratios[0], "ratio_median": statistics.median(ratios),
+               "ratio_max": ratios[-1]}
+        print(f"gemv pairs {rec['dtype']} (B={B}, n={n}), {PAIR_ROUNDS} rounds: kernel "
+              f"{ms:.4f} ms ({rec['gbps']:.1f} GB/s), plain {plain_ms:.4f} ms "
+              f"({rec['plain_gbps']:.1f} GB/s); kernel / plain min {ratios[0]:.4f}, "
+              f"median {rec['ratio_median']:.4f}, max {ratios[-1]:.4f}")
+        pairs.append(rec)
+        del A, x
+        torch.cuda.empty_cache()
+    return pairs
 
 
 def check_bounds(As, L, mu):
@@ -420,12 +489,14 @@ def main():
     kernels.load()
     print(f"kernel build {time.perf_counter() - t0:.1f} s -> {path.name}")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     measured = check_kernels(gen, dev)
     torch.cuda.empty_cache()
+    # A generator of its own, so the modes' ensembles stay those of ``gen``.
+    measured["pairs"] = gemv_pairs(torch.Generator(device=dev).manual_seed(SEED + 1), dev)
     measured_symv = check_symv(gen, dev)
     torch.cuda.empty_cache()
 
@@ -495,7 +566,7 @@ def main():
                                 diag_boost=1.0, chunk=256)
     diag = As.diagonal(dim1=-2, dim2=-1)
     proj_cone, proj64_cone = cone_proj(device=dev), cone_proj(torch.float64, dev)
-    # The GEMV at the cone width: n = 999 takes the scalar-load path.
+    # The GEMV at the cone width: rows of n = 999 are not 16-byte aligned.
     x = torch.randn((B_CONE, N_CONE), generator=gen, device=dev)
     y, ref = gemv.batched_gemv(As, x), gemv_f64(As, x)
     err = rel_err(y, ref)
@@ -504,7 +575,7 @@ def main():
                 "ms": time_ms(lambda: gemv.batched_gemv(As, x)),
                 "plain_ms": time_ms(lambda: gemv.batched_gemv_reference(As, x))}
     del y, ref, x
-    print(f"gemv f32 (B={B_CONE}, n={N_CONE}, scalar loads): rel err {err:.3e}, "
+    print(f"gemv f32 (B={B_CONE}, n={N_CONE}): rel err {err:.3e}, "
           f"kernel {gemv_999['ms']:.4f} ms ({As.numel() * 4 / gemv_999['ms'] / 1e6:.1f} GB/s), "
           f"plain einsum {gemv_999['plain_ms']:.4f} ms "
           f"({As.numel() * 4 / gemv_999['plain_ms'] / 1e6:.1f} GB/s)")

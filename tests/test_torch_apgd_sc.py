@@ -183,8 +183,8 @@ def cuda():
 
 @pytest.mark.cuda
 def test_spectral_dense_matvec_on_cuda(cuda):
-    """SpectralDense.matvec at the cone width n = 999 (the kernel's
-    scalar-load path) against its plain version in f64."""
+    """SpectralDense.matvec at the cone width n = 999 (rows not 16-byte
+    aligned) against its plain version in f64."""
     gen = torch.Generator(device=cuda).manual_seed(999)
     A = torch.randn((8, 999, 999), generator=gen, device=cuda)
     x = torch.randn((8, 999), generator=gen, device=cuda)

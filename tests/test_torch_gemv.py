@@ -27,6 +27,23 @@ def _inputs(B, n, seed):
     return A, x
 
 
+def _offset_view(t, offset):
+    """t's values as a contiguous view ``offset`` elements into a larger
+    buffer, so its base is aligned as the offset makes it.  The buffer
+    holds NaN before the view and in the 16 bytes after it, so a result
+    that used any element outside the view would be NaN."""
+    pad = 16 // t.element_size()
+    buf = torch.full((offset + t.numel() + pad,), torch.nan, dtype=t.dtype, device=t.device)
+    buf[offset:offset + t.numel()] = t.reshape(-1)
+    view = buf[offset:offset + t.numel()].view(t.shape)
+    assert view.is_contiguous() and view.storage_offset() == offset
+    return view
+
+
+def _bits(y):
+    return y.view(torch.int32)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -91,20 +108,126 @@ def test_rejects_other_devices():
                           torch.zeros((1, 2), device="meta"))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,n", [(3, 999), (3, 37), (4, 256), (2, 1000)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_plain_on_cuda(cuda, B, n, dtype):
-    gen = torch.Generator(device=cuda).manual_seed(B * n)
-    A = torch.randn((B, n, n), generator=gen, device=cuda).to(dtype)
-    x = torch.randn((B, n), generator=gen, device=cuda)
+def test_rejects_mismatched_devices():
+    with pytest.raises(ValueError):
+        gemv.batched_gemv(torch.zeros((1, 2, 2)), torch.zeros((1, 2), device="meta"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_plain_version_on_offset_views_is_bitwise(offset, dtype):
+    """A and x as contiguous views at a storage offset give bitwise the y of
+    their aligned copies, as the kernel must on the card."""
+    A, x = _inputs(3, 37, 6)
+    A, x = torch.from_numpy(A).to(dtype), torch.from_numpy(x)
+    y = gemv.batched_gemv(_offset_view(A, offset), _offset_view(x, offset))
+    assert torch.equal(_bits(y), _bits(gemv.batched_gemv(A, x)))
+
+
+@pytest.mark.parametrize("A,x,error", [
+    (torch.zeros((2, 8, 8), dtype=torch.float64), torch.zeros((2, 8)), TypeError),
+    (torch.zeros((2, 8, 8), dtype=torch.float16), torch.zeros((2, 8)), TypeError),
+    (torch.zeros((2, 8, 8)), torch.zeros((2, 8), dtype=torch.float64), TypeError),
+    (torch.zeros((2, 8, 8)), torch.zeros((2, 8), dtype=torch.bfloat16), TypeError),
+    (torch.zeros((2, 8, 8)).mT, torch.zeros((2, 8)), ValueError),
+    (torch.zeros((2, 8, 8)), torch.zeros((2, 16))[:, ::2], ValueError),
+], ids=["f64-A", "f16-A", "f64-x", "bf16-x", "strided-A", "strided-x"])
+def test_kernel_operand_checks_raise(A, x, error):
+    """What a CUDA tensor must be before the kernel launches; the same
+    checks run on CPU tensors here."""
+    with pytest.raises(error):
+        gemv._check_kernel_operands(A, x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("offset", [0, 3])
+def test_kernel_operand_checks_pass(offset, dtype):
+    """Contiguous f32 or bf16 A and f32 x pass at any storage offset."""
+    A = _offset_view(torch.zeros((2, 8, 8), dtype=dtype), offset)
+    gemv._check_kernel_operands(A, _offset_view(torch.zeros((2, 8)), offset))
+
+
+KERNEL_TOL = 1e-5   # max|y - y_ref| / max|y_ref| against the f64 plain version
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+
+
+def _launch(A, x):
+    """One kernel launch, synchronised, that adds exactly 1 to the count."""
     before = gemv.LAUNCHES
     y = gemv.batched_gemv(A, x)
     torch.cuda.synchronize()
     assert gemv.LAUNCHES == before + 1
-    ref = gemv.batched_gemv_reference(A.double(), x.double()) if dtype == torch.float32 \
-        else gemv.batched_gemv_reference(A, x).double()
-    assert float((y.double() - ref).abs().max() / ref.abs().max()) < 1e-5
+    assert y.dtype == torch.float32 and y.shape == x.shape
+    return y
+
+
+def _plain_f64(A, x):
+    """The plain version in f64; for bf16 A of the bf16-rounded x, as the
+    kernel reads it."""
+    if A.dtype == torch.bfloat16:
+        x = x.to(torch.bfloat16)
+    return gemv.batched_gemv_reference(A.double(), x.double())
+
+
+def _random(cuda, B, n, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    A = torch.randn((B, n, n), generator=gen, device=cuda).to(dtype)
+    return A, torch.randn((B, n), generator=gen, device=cuda)
+
+
+# Every n through one code path: tiny rows (all at the tensor's ends),
+# rows not 16-byte aligned (37, 999, 1025, 2049), several column tiles
+# (1025 and up in f32, 2049 and up in bf16); the phase-2 bucket; a batch
+# past 65535.
+SHAPES = [(B, n) for B in (1, 3) for n in (1, 2, 3, 31, 33, 999, 1000, 1025, 2049, 9001)]
+SHAPES += [(3, 37), (4, 256), (2, 1000), (41, 999), (41, 1000), (70000, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", SHAPES, ids=[f"B{B}-n{n}" for B, n in SHAPES])
+@DTYPES
+def test_kernel_matches_plain_on_cuda(cuda, B, n, dtype):
+    A, x = _random(cuda, B, n, dtype, B * 10007 + n)
+    y = _launch(A, x)
+    ref = _plain_f64(A, x)
+    assert float((y.double() - ref).abs().max() / ref.abs().max()) < KERNEL_TOL
+    assert torch.equal(_bits(_launch(A, x)), _bits(y)), "two launches differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", [(1, 1), (1, 3), (3, 33), (3, 999), (2, 1000), (2, 2049)])
+@DTYPES
+def test_kernel_storage_offset_bitwise_on_cuda(cuda, B, n, dtype):
+    """Views of A at every element offset within 16 bytes and of x at 0-3
+    floats, with NaN around both: y is bitwise the same as on aligned A and
+    x, so no copied span brings in a value from outside A or x."""
+    A, x = _random(cuda, B, n, dtype, n)
+    y = _launch(A, x)
+    ref = _plain_f64(A, x)
+    assert float((y.double() - ref).abs().max() / ref.abs().max()) < KERNEL_TOL
+    for a_off in range(16 // A.element_size()):
+        for x_off in range(4):
+            y_off = _launch(_offset_view(A, a_off), _offset_view(x, x_off))
+            assert torch.equal(_bits(y_off), _bits(y)), (a_off, x_off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@DTYPES
+def test_kernel_nan_stays_in_its_row_on_cuda(cuda, offset, dtype):
+    """A NaN in A[b, r, c] makes y[b, r] NaN and no other entry; the spots
+    include the first and last element of A and both sides of a 16-row
+    block."""
+    B, n = 3, 999
+    A, x = _random(cuda, B, n, dtype, 7)
+    spots = [(0, 0, 0), (0, 15, 998), (1, 16, 0), (1, 500, 3), (2, 998, 998)]
+    for b, r, c in spots:
+        A[b, r, c] = torch.nan
+    y = _launch(_offset_view(A, offset), _offset_view(x, offset))
+    expected = torch.zeros((B, n), dtype=torch.bool, device=cuda)
+    for b, r, _ in spots:
+        expected[b, r] = True
+    assert torch.equal(torch.isnan(y), expected)
 
 
 @pytest.mark.cuda
