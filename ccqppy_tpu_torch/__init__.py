@@ -9,16 +9,21 @@ versions on CPU tensors.
 
 * ``ccqppy_tpu_torch.ops``      -- box, bound, ball and Lorentz-cone
                                    projections and their blockwise, product
-                                   and segment compositions; dense, packed
+                                   and segment compositions; dense, bf16
+                                   (``CastDense``), mixed-precision, packed
                                    symmetric and spectral operators; the
                                    batched GEMV and symv kernels and their
                                    build.
 * ``ccqppy_tpu_torch.models``   -- the verified projected-CG face solver
-                                   (``pcg``), MPRGP and MPRGP-BB
-                                   (``mprgp``), strong-convexity accelerated
-                                   projected gradient (``apgd.solve_sc``) and
-                                   direct serving (``direct``).
-* ``ccqppy_tpu_torch.parallel`` -- batched solves with straggler compaction.
+                                   (``pcg``, with residual replacement),
+                                   MPRGP and MPRGP-BB (``mprgp``),
+                                   projected gradient (``pgd``), BBPGD and
+                                   BBPGDf (``bbpgd``), strong-convexity
+                                   accelerated projected gradient
+                                   (``apgd.solve_sc``) and direct serving
+                                   (``direct``).
+* ``ccqppy_tpu_torch.parallel`` -- batched solves with straggler compaction
+                                   and the bf16 -> f32 precision ladder.
 * ``ccqppy_tpu_torch.utils``    -- random QP ensembles, guarded timing, and
                                    conversion of problems, sets and configs
                                    from the JAX package.
@@ -30,12 +35,16 @@ __version__ = "0.1.0"
 
 from ccqppy_tpu_torch import models, ops, parallel, utils  # noqa: F401
 from ccqppy_tpu_torch.models import (SOLVERS, APGDSCConfig,  # noqa: F401
-                                     MPRGPBBConfig, MPRGPConfig, PCGConfig,
-                                     SolveResult, SolverConfig, apgd, mprgp, pcg)
+                                     BBPGDConfig, BBPGDfConfig, MPRGPBBConfig,
+                                     MPRGPConfig, PCGConfig, PGDConfig,
+                                     SolveResult, SolverConfig, apgd, bbpgd,
+                                     mprgp, pcg, pgd)
 from ccqppy_tpu_torch.ops import projections, symv  # noqa: F401
-from ccqppy_tpu_torch.ops.linop import (DenseOperator, LinearOperator,  # noqa: F401
-                                        SpectralDense, SymmetricPackedDense,
-                                        as_operator, estimate_spectral_bounds)
+from ccqppy_tpu_torch.ops.linop import (CastDense, DenseOperator,  # noqa: F401
+                                        FastDense, LinearOperator,
+                                        MixedPrecDense, SpectralDense,
+                                        SymmetricPackedDense, as_operator,
+                                        estimate_spectral_bounds)
 from ccqppy_tpu_torch.ops.projections import (BallProj, BlockwiseProj,  # noqa: F401
                                               BoxProj, IdentityProj,
                                               LorentzConeProj, LowerBoundProj,

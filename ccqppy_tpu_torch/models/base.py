@@ -94,6 +94,11 @@ def default_x0(b, x0, proj=None):
     return x0
 
 
+def lanes(v):
+    """A per-lane (B,) tensor as a (B, 1) column, to scale (B, n) rows."""
+    return v[:, None]
+
+
 def where_lanes(mask, new, old):
     """Per lane: ``new`` where ``mask`` (B,), else ``old``; either may carry
     trailing axes after the lane axis."""

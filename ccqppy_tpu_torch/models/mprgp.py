@@ -33,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from ccqppy_tpu_torch.models.base import (SolverConfig, default_x0, eps_of,
-                                          init_trace, make_result,
+                                          init_trace, lanes, make_result,
                                           pg_residual, record_trace,
                                           select_lanes, where_lanes)
 from ccqppy_tpu_torch.ops.linop import as_operator
@@ -59,10 +59,6 @@ class MPRGPBBConfig(MPRGPConfig):
     sound for polyhedral sets only."""
 
     expansion: str = "bb"
-
-
-def _lanes(v):
-    return v[:, None]
 
 
 def _bb_step(op, dx, dg, tiny):
@@ -101,7 +97,7 @@ def _solve(A, b, x0, proj, config, bb_variant):
     budget, tol = config.max_matvecs, config.tol
     B = b.shape[0]
     fixed_exp = bb_variant and config.expansion == "fixed"
-    alpha_bar = _lanes(2.0 / op.inf_norm()) if fixed_exp else None
+    alpha_bar = lanes(2.0 / op.inf_norm()) if fixed_exp else None
 
     g_init = op.matvec(x_init) + b
     res0 = pg_residual(proj, x_init, g_init, config.gd, op)
@@ -131,19 +127,19 @@ def _solve(A, b, x0, proj, config, bb_variant):
         alpha_cg = op.dot(psi, s.p) / pAp
         alpha_f = op.reduce_min(proj.max_feasible_step(s.x, s.p))
         # CG
-        x_cg = s.x - _lanes(alpha_cg) * s.p
-        g_cg = s.g - _lanes(alpha_cg) * Ap
+        x_cg = s.x - lanes(alpha_cg) * s.p
+        g_cg = s.g - lanes(alpha_cg) * Ap
         psi_cg, _ = proj.free_chopped(x_cg, g_cg)
-        p_cg = psi_cg - _lanes(op.dot(psi_cg, Ap) / pAp) * s.p
+        p_cg = psi_cg - lanes(op.dot(psi_cg, Ap) / pAp) * s.p
         a_cg = op.dot(s.p, s.p) / pAp
         # expansion: half step to the boundary, then a projected step
-        xh = s.x - _lanes(alpha_f) * s.p
-        gh = s.g - _lanes(alpha_f) * Ap
+        xh = s.x - lanes(alpha_f) * s.p
+        gh = s.g - lanes(alpha_f) * Ap
         if fixed_exp:
             psih, _ = proj.free_chopped(xh, gh)
             x_ex = proj.project(xh - alpha_bar * psih)
         else:
-            x_ex = proj.project(xh - _lanes(a_cg) * gh)
+            x_ex = proj.project(xh - lanes(a_cg) * gh)
         g_ex = op.matvec(x_ex) + b
         psi_ex, _ = proj.free_chopped(x_ex, g_ex)
         a_ex = _bb_step(op, x_ex - s.x, g_ex - s.g, tiny)
@@ -161,7 +157,7 @@ def _solve(A, b, x0, proj, config, bb_variant):
             mv_pp = s.mv + seed_needed.to(torch.int32)
         else:
             a_pp, mv_pp = s.alpha_bb, s.mv
-        x_pp = proj.project(s.x - _lanes(a_pp) * s.g)
+        x_pp = proj.project(s.x - lanes(a_pp) * s.g)
         g_pp = op.matvec(x_pp) + b
         psi_pp, _ = proj.free_chopped(x_pp, g_pp)
         pp = (x_pp, g_pp, psi_pp, _bb_step(op, x_pp - s.x, g_pp - s.g, tiny), mv_pp + 1)
@@ -227,7 +223,7 @@ def _solve_fused(A, b, x0, proj, config, bb_variant):
     budget, tol = config.max_matvecs, config.tol
     B = b.shape[0]
     fixed_exp = bb_variant and config.expansion == "fixed"
-    alpha_bar = _lanes(2.0 / op.inf_norm()) if fixed_exp else None
+    alpha_bar = lanes(2.0 / op.inf_norm()) if fixed_exp else None
 
     g_init = op.matvec(x_init) + b
     res0 = pg_residual(proj, x_init, g_init, config.gd, op)
@@ -247,7 +243,7 @@ def _solve_fused(A, b, x0, proj, config, bb_variant):
         # is computed from it here is dropped by the selects.
         psi, beta_ch = proj.free_chopped(s.x, s.g)
         proportional = op.dot(beta_ch, beta_ch) < gamma2 * op.dot(psi, psi)
-        x_prop = proj.project(s.x - _lanes(s.alpha_bb) * s.g)
+        x_prop = proj.project(s.x - lanes(s.alpha_bb) * s.g)
         dx_prop = x_prop - s.x
         br_fin = s.pending | s.verifying
         br_cg_ex = ~br_fin & proportional
@@ -266,16 +262,16 @@ def _solve_fused(A, b, x0, proj, config, bb_variant):
         alpha_cg = op.dot(psi, s.p) / pAp
         alpha_f = op.reduce_min(proj.max_feasible_step(s.x, s.p))
         take_cg = alpha_cg <= alpha_f
-        x_cg = s.x - _lanes(alpha_cg) * s.p
-        g_cg = s.g - _lanes(alpha_cg) * Av
+        x_cg = s.x - lanes(alpha_cg) * s.p
+        g_cg = s.g - lanes(alpha_cg) * Av
         a_cgbb = op.dot(s.p, s.p) / pAp
-        xh = s.x - _lanes(alpha_f) * s.p
-        gh = s.g - _lanes(alpha_f) * Av
+        xh = s.x - lanes(alpha_f) * s.p
+        gh = s.g - lanes(alpha_f) * Av
         if fixed_exp:
             psih, _ = proj.free_chopped(xh, gh)
             x_ex = proj.project(xh - alpha_bar * psih)
         else:
-            x_ex = proj.project(xh - _lanes(a_cgbb) * gh)
+            x_ex = proj.project(xh - lanes(a_cgbb) * gh)
 
         # ---- merge -------------------------------------------------------
         br_cg = br_cg_ex & take_cg
@@ -294,7 +290,7 @@ def _solve_fused(A, b, x0, proj, config, bb_variant):
 
         psi1, _ = proj.free_chopped(x1, g1)
         bcg = op.dot(psi1, Av) / pAp
-        p1 = where_lanes(br_cg, psi1 - _lanes(bcg) * s.p, psi1)
+        p1 = where_lanes(br_cg, psi1 - lanes(bcg) * s.p, psi1)
         p1 = where_lanes(br_ex, torch.zeros_like(p1), p1)
 
         res1 = pg_residual(proj, x1, g1, config.gd, op)

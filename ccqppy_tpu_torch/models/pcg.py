@@ -31,6 +31,11 @@ exact per-lane results.  Here the lanes are an explicit leading axis:
   their counters do not advance.
 
 The host reads one "any lane left?" flag per iteration.
+
+With ``refresh_every > 0`` the solve is the JAX package's residual
+replacement (``_solve_rr``): inner segments of CG on ``op.matvec`` (for
+``MixedPrecDense`` the bf16 sweep), each closed by one ``op.matvec_exact``
+refresh that recomputes the gradient and decides convergence.
 """
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ import torch
 
 from ccqppy_tpu_torch.models import mprgp
 from ccqppy_tpu_torch.models.base import (SolverConfig, default_x0, eps_of,
-                                          init_trace, make_result,
+                                          init_trace, lanes, make_result,
                                           pg_residual, record_trace,
                                           select_lanes)
 from ccqppy_tpu_torch.ops.linop import as_operator
@@ -52,16 +57,52 @@ from ccqppy_tpu_torch.ops.projections import identity
 class PCGConfig(SolverConfig):
     """precond: "none" or "jacobi" (M = diag(A) on the free set).
 
-    refresh_every > 0 selects the JAX package's mixed-precision residual
-    replacement, which is not ported yet; ``inner_margin``,
-    ``refresh_restart`` and ``segment_drop`` belong to it and are kept so
-    that configurations carry over field for field."""
+    refresh_every: 0 is plain PCG.  > 0 is mixed-precision residual
+    replacement: CG segments of at most ``refresh_every`` iterations on
+    ``op.matvec``, each ended by an exact gradient ``op.matvec_exact(x) + b``
+    whose true Eq. 25 residual alone decides convergence.
+
+    inner_margin: a segment also ends when its own residual estimate falls
+    below ``tol * inner_margin``.
+
+    segment_drop: with c > 0, a segment also ends once its estimate falls
+    below ``c`` times the residual at the segment's start (a low-precision
+    cycle cannot cash more; ~3e-2 suits bf16).
+
+    refresh_restart: True restarts CG (beta = 0) at every refresh; False
+    keeps the conjugate direction across it (beta from the exact r.z over
+    the last inner r.z, unless the refresh changed the mask)."""
 
     precond: str = "none"
     refresh_every: int = 0
     inner_margin: float = 0.3
     refresh_restart: bool = True
     segment_drop: float = 0.0
+
+
+def _cg_step(op, proj, prec, tiny, s):
+    """One projected CG step from ``s`` (fields x, g, m, p, rr) with one
+    ``op.matvec`` sweep: returns the new (x, g, m, r, p, rr)."""
+    Ap = op.matvec(s.p)
+    pAp = op.dot(s.p, s.m * Ap)
+    alpha_cg = s.rr / (pAp + tiny)
+    # max_feasible_step is defined for steps x - a*q; we move along +p.
+    alpha_f = op.reduce_min(proj.max_feasible_step(s.x, -s.p))
+    alpha = torch.minimum(alpha_cg, torch.clamp(alpha_f, min=0.0))
+    # project() only clears fp dust: the step is feasible by construction.
+    x = proj.project(s.x + lanes(alpha) * s.p)
+    g = s.g + lanes(alpha) * Ap
+    # Snap newly-binding coordinates exactly onto their bound (see
+    # Projection.snap_binding).
+    x = proj.snap_binding(x, g)
+    m = proj.binding_mask(x, g)
+    changed = (m != s.m).any(dim=-1)
+    r = -m * g
+    z = m * prec(r)
+    rr = op.dot(r, z)
+    restart = changed | (alpha_f < alpha_cg)
+    beta = torch.where(restart, 0.0, rr / (s.rr + tiny))
+    return x, g, m, r, z + lanes(beta) * s.p, rr
 
 
 class _State(NamedTuple):
@@ -95,10 +136,6 @@ def solve(A, b, x0=None, proj=None, config: PCGConfig = PCGConfig()):
         cfg = mprgp.MPRGPBBConfig(tol=config.tol, max_matvecs=config.max_matvecs,
                                   gd=config.gd, trace_len=config.trace_len)
         return mprgp.solve_bb(op, b, x0, proj, cfg)
-    if config.refresh_every > 0:
-        raise NotImplementedError(
-            "pcg residual replacement (refresh_every > 0) is not ported yet "
-            "(ROADMAP queue 1 item 12)")
     if config.precond not in ("none", "jacobi"):
         raise ValueError(f"precond must be 'none' or 'jacobi', not {config.precond!r}")
     if b.dim() != 2:
@@ -113,32 +150,12 @@ def solve(A, b, x0=None, proj=None, config: PCGConfig = PCGConfig()):
     else:
         prec = lambda r: r  # noqa: E731
 
-    def lanes(v):
-        return v[:, None]
+    if config.refresh_every > 0:
+        return _solve_rr(op, b, x0, proj, config, prec, tiny)
 
     def body(s):
-        Ap = op.matvec(s.p)
+        x, g, m, r, p, rr = _cg_step(op, proj, prec, tiny, s)
         mv = s.mv + 1
-        mAp = s.m * Ap
-        pAp = op.dot(s.p, mAp)
-        alpha_cg = s.rr / (pAp + tiny)
-        # max_feasible_step is defined for steps x - a*q; we move along +p.
-        alpha_f = op.reduce_min(proj.max_feasible_step(s.x, -s.p))
-        alpha = torch.minimum(alpha_cg, torch.clamp(alpha_f, min=0.0))
-        # project() only clears fp dust: the step is feasible by construction.
-        x = proj.project(s.x + lanes(alpha) * s.p)
-        g = s.g + lanes(alpha) * Ap
-        # Snap newly-binding coordinates exactly onto their bound (see
-        # Projection.snap_binding).
-        x = proj.snap_binding(x, g)
-        m = proj.binding_mask(x, g)
-        changed = (m != s.m).any(dim=-1)
-        r = -m * g
-        z = m * prec(r)
-        rr = op.dot(r, z)
-        restart = changed | (alpha_f < alpha_cg)
-        beta = torch.where(restart, 0.0, rr / (s.rr + tiny))
-        p = z + lanes(beta) * s.p
         res = pg_residual(proj, x, g, config.gd, op)
         # rr == 0 exactly: a fully frozen mask, no direction left to move in.
         # ``mv + 1``: one matvec of budget is reserved for the verification.
@@ -192,3 +209,99 @@ def solve(A, b, x0=None, proj=None, config: PCGConfig = PCGConfig()):
     # The stagnation exit would read as converged under the budget
     # semantics; report the honest criterion (o.res is a fresh residual).
     return dataclasses.replace(result, converged=o.res < tol)
+
+
+class _RRInner(NamedTuple):
+    x: torch.Tensor
+    g: torch.Tensor     # carried (cheap-operator) gradient
+    m: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    rr: torch.Tensor
+    thr: torch.Tensor   # segment stop threshold on the residual estimate
+    mv: torch.Tensor
+    k: torch.Tensor
+    done: torch.Tensor
+
+
+class _RROuter(NamedTuple):
+    x: torch.Tensor
+    g: torch.Tensor     # exact gradient (op.matvec_exact)
+    m: torch.Tensor
+    p: torch.Tensor     # carried conjugate direction (keep-p mode)
+    rr: torch.Tensor    # last inner r.z (the cross-segment beta)
+    fresh: torch.Tensor  # True: the next segment starts steepest-descent
+    res: torch.Tensor   # true Eq. 25 residual at the last refresh
+    mv: torch.Tensor
+    it: torch.Tensor
+    done: torch.Tensor
+    trace: torch.Tensor
+
+
+def _solve_rr(op, b, x0, proj, config, prec, tiny):
+    """Residual-replacement PCG (``PCGConfig.refresh_every``): an outer loop
+    of exact refreshes around inner segments of cheap CG iterations.  Every
+    inner step is one cheap sweep over all lanes, every refresh one exact
+    sweep; both count as matvecs, and a lane's counters move only while it
+    is active.  The trace records the true residual of each refresh."""
+    K = int(config.refresh_every)
+    tol, budget = config.tol, config.max_matvecs
+    inner_tol = tol * config.inner_margin
+
+    def inner_body(t):
+        x, g, m, r, p, rr = _cg_step(op, proj, prec, tiny, t)  # the cheap sweep
+        # The estimate on the carried gradient only ends the segment.  The
+        # ``+ 2`` keeps room for the segment's exact refresh in the budget.
+        res_est = pg_residual(proj, x, g, config.gd, op)
+        done = (res_est < t.thr) | (rr == 0) | (t.k + 1 >= K) | (t.mv + 2 >= budget)
+        return _RRInner(x, g, m, r, p, rr, t.thr, t.mv + 1, t.k + 1, done)
+
+    g0 = op.matvec_exact(x0) + b
+    x0 = proj.snap_binding(x0, g0)
+    res0 = pg_residual(proj, x0, g0, config.gd, op)
+    B = b.shape[0]
+    s = _RROuter(x=x0, g=g0, m=proj.binding_mask(x0, g0), p=torch.zeros_like(b),
+                 rr=torch.ones(B, dtype=b.dtype, device=b.device),
+                 fresh=torch.ones(B, dtype=torch.bool, device=b.device), res=res0,
+                 mv=torch.ones(B, dtype=torch.int32, device=b.device),
+                 it=torch.zeros(B, dtype=torch.int32, device=b.device),
+                 done=(res0 < tol) | (1 >= budget),
+                 trace=init_trace(config, B, b.dtype, b.device))
+
+    while True:
+        outer = ~s.done
+        if not bool(outer.any()):
+            break
+        # Segment start: exact steepest descent on the free set, conjugated
+        # against the carried direction in keep-p mode.
+        r0 = -s.m * s.g
+        z0 = s.m * prec(r0)
+        rr0 = op.dot(r0, z0)
+        if config.refresh_restart:
+            p0 = z0
+        else:
+            p0 = z0 + lanes(torch.where(s.fresh, 0.0, rr0 / (s.rr + tiny))) * s.p
+        thr = torch.full_like(s.res, inner_tol)
+        if config.segment_drop > 0:
+            thr = torch.maximum(thr, config.segment_drop * s.res)
+        t = _RRInner(s.x, s.g, s.m, r0, p0, rr0, thr, s.mv, torch.zeros_like(s.it),
+                     (rr0 == 0) | (s.mv >= budget))
+        while True:
+            active = outer & ~t.done
+            if not bool(active.any()):
+                break
+            t = select_lanes(active, inner_body(t), t)
+        # Exact refresh: gradient, mask, true residual.
+        g = op.matvec_exact(t.x) + b
+        mv = t.mv + 1
+        m = proj.binding_mask(t.x, g)
+        res = pg_residual(proj, t.x, g, config.gd, op)
+        # k == 0: the segment had no free direction; a further one would spin.
+        done = (res < tol) | (mv >= budget) | (t.k == 0)
+        fresh = (m != t.m).any(dim=-1)
+        s = select_lanes(outer, _RROuter(t.x, g, m, t.p, t.rr, fresh, res, mv,
+                                         s.it + t.k, done,
+                                         record_trace(s.trace, s.it, res)), s)
+
+    result = make_result(s.x, s.res, s.mv, s.it, budget, s.trace)
+    return dataclasses.replace(result, converged=s.res < tol)

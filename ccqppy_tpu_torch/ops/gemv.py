@@ -20,16 +20,22 @@ from ccqppy_tpu_torch.ops import kernels
 #: Number of kernel launches in this process.  Only a CUDA launch adds to
 #: it; the plain version on the CPU does not.
 LAUNCHES = 0
+#: The bf16 launches among ``LAUNCHES`` (the cheap sweeps of ``CastDense``
+#: and ``MixedPrecDense``).
+LAUNCHES_BF16 = 0
 
 
 def batched_gemv_reference(A, x):
-    """Plain version: f32 products and accumulation (f64 for f64 ``A``).
-    For bf16 ``A``, x is rounded to bf16 first, as the kernel does."""
-    if A.dtype == torch.float64:
-        return torch.einsum("bij,bj->bi", A, x.to(torch.float64))
+    """Plain version, in the JAX operators' dtypes: for f32 or f64 ``A``
+    products and sums in ``promote(A.dtype, x.dtype)``; for bf16 ``A``, x is
+    rounded to bf16 first, as the kernel does, and the sums run in
+    ``promote(x.dtype, float32)``.  The result has the dtype of the sums."""
     if A.dtype == torch.bfloat16:
+        acc = torch.promote_types(x.dtype, torch.float32)
         x = x.to(torch.bfloat16)
-    return torch.einsum("bij,bj->bi", A.to(torch.float32), x.to(torch.float32))
+    else:
+        acc = torch.promote_types(A.dtype, x.dtype)
+    return torch.einsum("bij,bj->bi", A.to(acc), x.to(acc))
 
 
 def _check(A, x):
@@ -53,13 +59,13 @@ def _check_kernel_operands(A, x):
 
 
 def batched_gemv(A, x):
-    """y[b] = A[b] @ x[b] for A (B, n, n) and x (B, n) -> (B, n) float32.
+    """y[b] = A[b] @ x[b] for A (B, n, n) and x (B, n) -> (B, n).
 
-    On CUDA: A is float32 or bfloat16 and x float32, both contiguous, and
-    the kernel runs on the current stream.  On the CPU: the plain version,
-    in any floating dtype.
+    On CUDA: A is float32 or bfloat16 and x float32, both contiguous, the
+    kernel runs on the current stream and y is float32.  On the CPU: the
+    plain version, in any floating dtype.
     """
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_BF16
     _check(A, x)
     if A.device.type == "cpu":
         return batched_gemv_reference(A, x)
@@ -78,4 +84,6 @@ def batched_gemv(A, x):
     if err != 0:
         raise RuntimeError(f"batched_gemv kernel launch failed with CUDA error {err}")
     LAUNCHES += 1
+    if A.dtype == torch.bfloat16:
+        LAUNCHES_BF16 += 1
     return y

@@ -1,11 +1,13 @@
 """Linear operators for the QP Hessian ``A``, batched.
 
 Port of the dense family of ``ccqppy_tpu/ops/linop.py``: the
-``LinearOperator`` protocol, ``DenseOperator``, ``SymmetricPackedDense``,
+``LinearOperator`` protocol, ``DenseOperator``, ``FastDense``,
+``CastDense``, ``MixedPrecDense``, ``SymmetricPackedDense``,
 ``SpectralDense`` with ``estimate_spectral_bounds``, and ``as_operator``.
 A dense operator holds a ``(B, n, n)`` stack;
 ``matvec`` maps ``(B, n)`` to ``(B, n)`` through ``ops.gemv.batched_gemv``
-(the hand-written kernel on CUDA, exact fp32 FMA).  The packed symmetric
+(the hand-written kernel on CUDA, exact fp32 FMA; for a bf16 stack the
+kernel's bf16 instance, which rounds x to bf16).  The packed symmetric
 operator holds only the upper tiles and applies them through
 ``ops.symv.batched_symv_packed``.  ``dot`` and every other reduction is per
 lane, over the last dimension; ``take(idx)`` restricts an operator to the
@@ -65,12 +67,22 @@ class LinearOperator:
         raise NotImplementedError
 
 
+def _check_stack(cls, A, dtypes):
+    if A.dim() != 3 or A.shape[1] != A.shape[2]:
+        raise ValueError(f"{cls} takes a (B, n, n) stack, got {tuple(A.shape)}")
+    if A.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        hint = " (a bfloat16 stack is a CastDense)" if A.dtype == torch.bfloat16 else ""
+        raise TypeError(f"{cls} takes a {names} stack, not {A.dtype}{hint}")
+
+
 class DenseOperator(LinearOperator):
-    """Dense stack A of shape (B, n, n); a single problem is B = 1."""
+    """Dense f32 or f64 stack A of shape (B, n, n); a single problem is
+    B = 1.  The matvec keeps x's precision (``promote(A, x)``); a bfloat16
+    stack, whose matvec rounds x, is a ``CastDense``."""
 
     def __init__(self, A):
-        if A.dim() != 3 or A.shape[1] != A.shape[2]:
-            raise ValueError(f"DenseOperator takes a (B, n, n) stack, got {tuple(A.shape)}")
+        _check_stack(type(self).__name__, A, (torch.float32, torch.float64))
         self.A = A
 
     def matvec(self, x):
@@ -84,6 +96,96 @@ class DenseOperator(LinearOperator):
 
     def take(self, idx):
         return DenseOperator(self.A[idx])
+
+
+class FastDense(DenseOperator):
+    """The JAX package's cheap-sweep operator, kept so that configurations
+    carry over: there ``matvec`` is a DEFAULT-precision sweep (bf16-grade
+    MXU products) and ``matvec_exact`` a HIGHEST one over the same f32
+    buffer.  The H100's f32 GEMV kernel has no such split: it does exact
+    fp32 FMA bound by memory, and TF32 stays off, since the convergence
+    decisions rest on exact sweeps.  So ``matvec`` and ``matvec_exact`` are
+    the same f32 kernel sweep, and rr-PCG on a ``FastDense`` computes what it
+    computes on a ``DenseOperator``."""
+
+    def take(self, idx):
+        return FastDense(self.A[idx])
+
+
+class CastDense(LinearOperator):
+    """Dense stack stored in bfloat16, applied to a bf16 rounding of x with
+    sums in ``promote(x.dtype, float32)``: the cheap rung of the
+    mixed-precision ladder (``parallel/mixed.py``).  On CUDA the matvec is
+    the GEMV kernel's bf16 instance (fp32 FMA on bf16 products, half the
+    bytes of an f32 sweep); x is then float32.  Solutions against this
+    operator carry a true-residual floor of roughly ``2^-8 ||A||``, and the
+    solver's own residual floors near it too (each sweep rounds x to bf16),
+    so a full-precision phase must follow."""
+
+    def __init__(self, A):
+        _check_stack("CastDense", A, (torch.bfloat16,))
+        self.A = A
+
+    @staticmethod
+    def from_f32(A, dtype=torch.bfloat16):
+        return CastDense(A.to(dtype))
+
+    def matvec(self, x):
+        return batched_gemv(self.A, x).to(x.dtype)
+
+    def inf_norm(self):
+        return self.A.abs().sum(dim=-1, dtype=torch.float32).amax(dim=-1)
+
+    def diagonal(self):
+        return torch.diagonal(self.A, dim1=-2, dim2=-1).float()
+
+    def take(self, idx):
+        return CastDense(self.A[idx])
+
+
+class MixedPrecDense(LinearOperator):
+    """Dense operator carrying both precisions: ``matvec`` streams the
+    bfloat16 copy ``A_low`` (as ``CastDense``; sums in
+    ``promote(x.dtype, float32)``), ``matvec_exact`` the float32 ``A``.
+    The operand of residual-replacement PCG (``models.pcg`` with
+    ``refresh_every > 0``): the CG recurrence rides the cheap sweeps, every
+    refresh and reported residual the exact one.  Build with ``from_f32(A)``
+    or from ``parallel.prepare_dense_batch(As, torch.bfloat16)``.
+
+    The JAX package's f64-exact rung (f64 ``A``, f32 ``A_low``) needs an f64
+    instance of the GEMV kernel, which does not exist yet (ROADMAP queue 1
+    item 12): an f64 ``A`` raises."""
+
+    def __init__(self, A, A_low):
+        if A.dtype == torch.float64:
+            raise NotImplementedError(
+                "MixedPrecDense with an f64 A (the f64-exact rung) needs an f64 "
+                "instance of the GEMV kernel, not ported yet (ROADMAP queue 1 item 12)")
+        _check_stack("MixedPrecDense", A, (torch.float32,))
+        _check_stack("MixedPrecDense", A_low, (torch.bfloat16,))
+        if A_low.shape != A.shape:
+            raise ValueError(f"A_low {tuple(A_low.shape)} must match A {tuple(A.shape)}")
+        self.A, self.A_low = A, A_low
+
+    @staticmethod
+    def from_f32(A, dtype=torch.bfloat16):
+        return MixedPrecDense(A, A.to(dtype))
+
+    def matvec(self, x):
+        # The deliberately cheap sweep: its accuracy is that of A_low.
+        return batched_gemv(self.A_low, x).to(x.dtype)
+
+    def matvec_exact(self, x):
+        return batched_gemv(self.A, x)
+
+    def inf_norm(self):
+        return self.A.abs().sum(dim=-1).amax(dim=-1)
+
+    def diagonal(self):
+        return torch.diagonal(self.A, dim1=-2, dim2=-1)
+
+    def take(self, idx):
+        return MixedPrecDense(self.A[idx], self.A_low[idx])
 
 
 class SymmetricPackedDense(LinearOperator):

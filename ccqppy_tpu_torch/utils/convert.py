@@ -13,14 +13,18 @@ import torch
 
 from ccqppy_tpu_torch.models.apgd import APGDSCConfig
 from ccqppy_tpu_torch.models.base import SolverConfig
+from ccqppy_tpu_torch.models.bbpgd import BBPGDConfig, BBPGDfConfig
 from ccqppy_tpu_torch.models.mprgp import MPRGPBBConfig, MPRGPConfig
 from ccqppy_tpu_torch.models.pcg import PCGConfig
+from ccqppy_tpu_torch.models.pgd import PGDConfig
 from ccqppy_tpu_torch.ops import projections as P
-from ccqppy_tpu_torch.ops.linop import (DenseOperator, SpectralDense,
+from ccqppy_tpu_torch.ops.linop import (CastDense, DenseOperator, FastDense,
+                                        MixedPrecDense, SpectralDense,
                                         SymmetricPackedDense)
 
 _CONFIGS = {c.__name__: c for c in (SolverConfig, PCGConfig, APGDSCConfig,
-                                    MPRGPConfig, MPRGPBBConfig)}
+                                    MPRGPConfig, MPRGPBBConfig, PGDConfig,
+                                    BBPGDConfig, BBPGDfConfig)}
 
 
 def problem_from_numpy(A, b, device, dtype):
@@ -32,18 +36,33 @@ def problem_from_numpy(A, b, device, dtype):
 
 
 def operator_from_jax(op, device, dtype):
-    """The port's counterpart of a JAX ``DenseOperator``,
-    ``SymmetricPackedDense`` or ``SpectralDense``, with its arrays on
-    ``device`` in ``dtype``.  ``Ap``, ``diag``, ``n``, ``tile``, ``L`` and
-    ``mu`` carry over as they are; a single problem gains a leading lane
-    axis of one.  The arrays are copied."""
-    def tensor(v, batched_dim):
-        t = torch.as_tensor(np.array(v), dtype=dtype, device=device)
+    """The port's counterpart of a JAX ``DenseOperator``, ``FastDense``,
+    ``CastDense``, ``MixedPrecDense``, ``SymmetricPackedDense`` or
+    ``SpectralDense``, with its arrays on ``device`` in ``dtype``; the two
+    stacks of ``MixedPrecDense`` and the stack of ``CastDense`` keep their
+    own dtypes (a bfloat16 array is read through float32, which is exact).
+    ``Ap``, ``diag``, ``n``, ``tile``, ``L`` and ``mu`` carry over as they
+    are; a single problem gains a leading lane axis of one.  The arrays are
+    copied."""
+    def tensor(v, batched_dim, dtype=dtype):
+        """``v`` as a tensor, in ``dtype`` or, for None, in its own."""
+        a = np.array(v)
+        if a.dtype.name == "bfloat16":      # ml_dtypes, which torch cannot read
+            t = torch.as_tensor(a.astype(np.float32), device=device).to(torch.bfloat16)
+        else:
+            t = torch.as_tensor(a, device=device)
+        t = t if dtype is None else t.to(dtype)
         return (t[None] if t.dim() < batched_dim else t).contiguous()
 
     name = type(op).__name__
     if name == "DenseOperator":
         return DenseOperator(tensor(op.A, 3))
+    if name == "FastDense":
+        return FastDense(tensor(op.A, 3))
+    if name == "CastDense":
+        return CastDense(tensor(op.A, 3, None))
+    if name == "MixedPrecDense":
+        return MixedPrecDense(tensor(op.A, 3, None), tensor(op.A_low, 3, None))
     if name == "SpectralDense":
         return SpectralDense(tensor(op.A, 3), tensor(op.L, 1), tensor(op.mu, 1))
     if name == "SymmetricPackedDense":

@@ -4,7 +4,7 @@
 The main path is the batched 1000-dim box-QP workload: B independent QPs
 with ``A = G G^T + n I`` (G standard normal), ``b = -A x_uncon``
 (x_uncon ~ U(-1, 1)), box [-1, 1], tol 2e-5, a 500-matvec budget, and
-right-hand sides perturbed by 1e-3 N(0, 1) per call.  Three modes:
+right-hand sides perturbed by 1e-3 N(0, 1) per call.  Three box modes:
 
 * iterative (B=2048): Jacobi warm start ``clip(-b / diag A, -1, 1)``, then
   verified PCG with fused straggler compaction (phase 1 at 17 matvecs, a
@@ -16,7 +16,21 @@ right-hand sides perturbed by 1e-3 N(0, 1) per call.  Three modes:
   call the projected inverse apply, a verification sweep and a compacted
   PCG polish (phase 1 at 3 matvecs, a 64-lane bucket).
 
-A fourth mode, cone, is the cone ensemble of
+Two more box modes run on the iterative mode's B=2048 ensemble, from the
+same Jacobi start:
+
+* (e) bbpgd_f: ``solve_batched("bbpgd_f", ...)``, the README's batched
+  quick start, every matvec an f32 GEMV launch;
+* (f) mixed: ``solve_batched_mixed``, the bf16 -> f32 precision ladder:
+  BBPGDf on a bf16 copy of the stack (built once by ``prepare_dense_batch``,
+  outside the clock) through the GEMV kernel's bf16 instance, a verified
+  f32 PCG polish, and an MPRGP-BB fixup of the stragglers.
+
+Beside them, a check: residual-replacement PCG on
+``MixedPrecDense(As, As16)`` (refresh every 16) and plain PCG, both from
+x = 0, audited once, then timed in interleaved pairs ("rr pairs").
+
+The sixth mode, cone, is the cone ensemble of
 ``benchmarks/benchmark_cone_ensemble.py`` at its full width: B=1024 QPs of
 n=999 under 333 Lorentz-cone blocks of dimension 3 (mu=1), the same
 Hessian family, tol 1e-5, a 2000-matvec budget, right-hand sides perturbed
@@ -31,11 +45,13 @@ Steps: build the CUDA kernels from ``ccqppy_tpu_torch/csrc``; hold each
 kernel's entry points against their plain PyTorch versions on the card
 (the GEMV also on A and x at storage offsets of 1-3 elements, bitwise);
 time the GEMV against ``einsum`` in interleaved pairs at five shapes
-("gemv pairs"); run the four modes at full width, audit every lane's true
-residual with the plain f64 GEMV of the dense stack, and check that the
-kernels carried each mode (launch counts are zeroed just before a mode
-and read just after it).  Any failed check raises, so the exit code is non-zero.  The last line
-of standard output is one JSON object naming the device.
+("gemv pairs"); run the six modes and the rr-PCG check at full width,
+audit every lane's true residual with the plain f64 GEMV of the dense
+stack, and check that the kernels carried each mode (launch counts are
+zeroed just before a mode and read just after it; ``gemv.LAUNCHES_BF16``
+counts the bf16 launches among ``gemv.LAUNCHES``).  Any failed check
+raises, so the exit code is non-zero.  The last line of standard output is
+one JSON object naming the device.
 
 Run:  python3 chip_smoke.py      (needs one CUDA GPU, nvcc for sm_90a)
 """
@@ -46,16 +62,19 @@ import time
 
 import torch
 
+from ccqppy_tpu_torch.models import pcg
 from ccqppy_tpu_torch.models.apgd import APGDSCConfig
 from ccqppy_tpu_torch.models.base import pg_residual
+from ccqppy_tpu_torch.models.bbpgd import BBPGDfConfig
 from ccqppy_tpu_torch.models.direct import solve_direct_batched, spd_inverse_batch
 from ccqppy_tpu_torch.models.mprgp import MPRGPBBConfig
 from ccqppy_tpu_torch.models.pcg import PCGConfig
 from ccqppy_tpu_torch.ops import gemv, kernels, symv
-from ccqppy_tpu_torch.ops.linop import (SpectralDense, SymmetricPackedDense,
-                                        estimate_spectral_bounds)
+from ccqppy_tpu_torch.ops.linop import (CastDense, MixedPrecDense, SpectralDense,
+                                        SymmetricPackedDense, estimate_spectral_bounds)
 from ccqppy_tpu_torch.ops.projections import blockwise, box, lorentz_cone
-from ccqppy_tpu_torch.parallel import solve_batched, solve_batched_fused_compact
+from ccqppy_tpu_torch.parallel import (prepare_dense_batch, solve_batched,
+                                       solve_batched_fused_compact, solve_batched_mixed)
 from ccqppy_tpu_torch.utils.benchmark import dense_sweep_bytes, timed_run
 from ccqppy_tpu_torch.utils.random_qp import random_qp_batch
 
@@ -70,6 +89,15 @@ PHASE1 = 17        # p50 sweep count + the verification sweep
 BUCKET = 256
 
 TILE_PACKED = 256  # n = 1000 padded to 1024: 10 tiles, 0.655x the dense bytes
+
+# Least sweeps of one call, for the timing guard: (e) the two init sweeps
+# and a few BB steps; (f) phase A's three bf16 sweeps (2 bytes an element)
+# and phase B's init and verification f32 sweeps (4 bytes).
+SWEEPS_BB = 10
+SWEEPS_MIXED_BF16, SWEEPS_MIXED_F32 = 3, 2
+PHASE_A_TOL, PHASE_A_BUDGET = 5e-3, 48   # the ladder's defaults
+REFRESH_EVERY = 16                       # rr-PCG check
+RR_ROUNDS = 6      # interleaved rounds of plain PCG and rr-PCG
 
 B_DIRECT = 1024    # As and A^-1 both resident
 PHASE1_DIRECT = 3
@@ -87,6 +115,12 @@ SPECTRUM_TOL = 0.03  # |L / lambda_max - 1| and |mu / lambda_min - 1|
 
 REPS = 3           # timed reps per mode
 KERNEL_REPS = 25   # timed launches per kernel measurement
+
+# The card's peaks for a kernel's bound: the larger of bytes over the memory
+# rate and FLOPs over the fp32 rate outside the tensor cores (every kernel
+# here does fp32 FMA).  NVIDIA's H100 SXM data sheet.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 
 GEMV_F32_TOL = 1e-5    # max|y - y_ref| / max|y_ref| against the f64 plain version
 GEMV_BF16_TOL = 2e-2   # bf16 A against the f64 GEMV of the f32 A (quantization)
@@ -111,7 +145,7 @@ def require(ok, msg):
 
 def zero_counts():
     """Set every kernel's launch count to 0, just before a mode runs."""
-    gemv.LAUNCHES = 0
+    gemv.LAUNCHES = gemv.LAUNCHES_BF16 = 0
     symv.LAUNCHES.update(dict.fromkeys(symv.LAUNCHES, 0))
 
 
@@ -124,6 +158,24 @@ def run_iterative(As, b, diag, proj, cfg):
     return solve_batched_fused_compact(
         "pcg", As, b, PHASE1, x0=jacobi_x0(diag, b), proj=proj, config=cfg,
         bucket=BUCKET, host_fallback=False)
+
+
+def run_bbpgd_f(As, b, diag, proj, cfg):
+    """One call of mode (e): the README's batched quick start."""
+    return solve_batched("bbpgd_f", As, b, x0=jacobi_x0(diag, b), proj=proj, config=cfg)
+
+
+def run_mixed(As, As16, b, diag, proj, cfg):
+    """One call of mode (f): the bf16 -> f32 precision ladder."""
+    return solve_batched_mixed(As, b, proj=proj, config=cfg, As_low=As16,
+                               x0=jacobi_x0(diag, b))
+
+
+def run_phase_a(As16, b, diag, proj, cfg):
+    """Phase A of mode (f) alone, to read its per-lane matvecs."""
+    return solve_batched("bbpgd_f", CastDense(As16), b, x0=jacobi_x0(diag, b), proj=proj,
+                         config=BBPGDfConfig(tol=PHASE_A_TOL, max_matvecs=PHASE_A_BUDGET,
+                                             gd=cfg.gd))
 
 
 def run_packed(op, b, proj, cfg):
@@ -200,6 +252,20 @@ def time_ms(fn, reps=KERNEL_REPS, warmup=3):
     return statistics.median(times)
 
 
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time the card could take to move
+    ``nbytes`` and do ``flops`` fp32 operations, and which of the two sets
+    it."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gemv_bound(A, x):
+    """A and x read once, y written once; 2 FLOPs per element of A."""
+    return bound(A.numel() * A.element_size() + 2 * x.numel() * 4, 2 * A.numel())
+
+
 def rel_err(y, ref):
     return float((y.double() - ref).abs().max() / ref.abs().max())
 
@@ -265,8 +331,25 @@ def check_kernels(gen, dev):
     del ref
     require(gemv.LAUNCHES > before, "the kernel checks launched no kernel")
 
+    yb = gemv.batched_gemv(Ab, x)
+    bf16_abs = float((yb.double() - chunked_f64(gemv.batched_gemv_reference, Ab,
+                                                x.to(torch.bfloat16))).abs().max())
+    del yb
     ms = time_ms(lambda: gemv.batched_gemv(A, x))
     plain_ms = time_ms(lambda: gemv.batched_gemv_reference(A, x))
+    # One PyTorch call for the same function (cuBLAS); the port never calls
+    # it.  For bf16 A, x is rounded to bf16 outside the clock, and
+    # ``out_dtype`` sums the bf16 products in f32 into an f32 y.
+    library_ms = time_ms(lambda: torch.bmm(A, x.unsqueeze(-1)))
+    xb = x.to(torch.bfloat16).unsqueeze(-1)
+    y_lib = torch.bmm(Ab, xb, out_dtype=torch.float32).squeeze(-1)
+    lib_err = rel_err(y_lib, gemv.batched_gemv_reference(Ab, x).double())
+    print(f"gemv bf16 B={B} n={n}: torch.bmm(out_dtype=float32) rel err vs plain bf16 "
+          f"{lib_err:.3e}")
+    require(y_lib.dtype == torch.float32 and lib_err < GEMV_BF16_PLAIN_TOL,
+            f"torch.bmm bf16 -> f32 is not the bf16 GEMV's function: rel err {lib_err}")
+    del y_lib
+    library_bf16 = time_ms(lambda: torch.bmm(Ab, xb, out_dtype=torch.float32))
     ms_bf16 = time_ms(lambda: gemv.batched_gemv(Ab, x))
     plain_ms_bf16 = time_ms(lambda: gemv.batched_gemv_reference(Ab, x))
     f32_bytes, bf16_bytes = B * n * n * 4, B * n * n * 2
@@ -276,7 +359,16 @@ def check_kernels(gen, dev):
     print(f"gemv bf16 (B={B}, n={n}): kernel {ms_bf16:.4f} ms "
           f"({bf16_bytes / ms_bf16 / 1e6:.1f} GB/s), plain (upcast + einsum) "
           f"{plain_ms_bf16:.4f} ms")
-    return {"max_abs_err": f32_abs, "ms": ms, "plain_ms": plain_ms}
+    bound_ms, bound_by = gemv_bound(A, x)
+    bound_bf16, by_bf16 = gemv_bound(Ab, x)
+    print(f"gemv f32 (B={B}, n={n}): torch.bmm {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
+          f"({bound_by}); bf16: torch.bmm(out_dtype=float32) {library_bf16:.4f} ms, "
+          f"bound {bound_bf16:.4f} ms ({by_bf16})")
+    return {"max_abs_err": f32_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "bf16": {"max_abs_err": bf16_abs, "ms": ms_bf16, "plain_ms": plain_ms_bf16,
+                     "bound_ms": bound_bf16, "bound_by": by_bf16,
+                     "library_ms": library_bf16}}
 
 
 def gemv_pairs(gen, dev):
@@ -408,17 +500,49 @@ def check_symv(gen, dev):
                   f"plain {plain:.4f} ms ({packed_bytes / plain / 1e6:.1f} GB/s)")
         print(f"symv_packed (B=1, n={n}, tile={tile}): kernel {ms_one:.4f} ms, "
               f"plain {plain_one:.4f} ms")
+        # Each reads the upper tiles once, x once, writes y once; 2 FLOPs
+        # per element of the symmetric A.  No single PyTorch call reads only
+        # the upper tiles, so there is no library time.
+        io = 2 * B * n * 4
+        b_many = bound(packed_bytes + io, 2 * B * n * n)
+        b_one = bound(packed_bytes // B + io // B, 2 * n * n)
         measured = {
             "batched_symv": {"max_abs_err": abs_full, "ms": ms_full, "plain_ms": plain_full},
             "batched_symv_packed": {"max_abs_err": abs_pack, "ms": ms_pack,
                                     "plain_ms": plain_pack},
             "symv_packed": {"max_abs_err": abs_one, "ms": ms_one, "plain_ms": plain_one},
         }
+        for name, (bms, by) in (("batched_symv", b_many), ("batched_symv_packed", b_many),
+                                ("symv_packed", b_one)):
+            measured[name].update(bound_ms=bms, bound_by=by, library_ms=None)
         del y_full, y_pack, y_one, y_nan
     for name, m in measured.items():
         m["kernel_phase_launches"] = symv.LAUNCHES[name] - before[name]
         require(m["kernel_phase_launches"] > 0, f"the symv checks launched no {name}")
     return measured
+
+
+def rr_pairs(runs, bs, gen, proj):
+    """Plain PCG and rr-PCG from x = 0 in RR_ROUNDS interleaved rounds, each
+    round on one freshly perturbed b, the order alternating between rounds;
+    prints the median wall of each and the min / median / max of the
+    per-round ratio rr-PCG / plain PCG."""
+    walls = {name: [] for name, _, _ in runs}
+    for k in range(RR_ROUNDS):
+        b = bs + NOISE * torch.randn(bs.shape, generator=gen, device=bs.device)
+        for name, op_rr, cfg_rr in (runs if k % 2 == 0 else runs[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = pcg.solve(op_rr, b, proj=proj, config=cfg_rr)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+            require(bool(r.converged.all()), f"{name}: a paired call did not converge")
+    ratios = sorted(q / p for q, p in zip(walls["rr-PCG"], walls["plain PCG"]))
+    print(f"rr pairs ({RR_ROUNDS} rounds, B={bs.shape[0]}): plain PCG median "
+          f"{statistics.median(walls['plain PCG']):.5f} s, rr-PCG median "
+          f"{statistics.median(walls['rr-PCG']):.5f} s; rr-PCG / plain PCG min "
+          f"{ratios[0]:.4f}, median {statistics.median(ratios):.4f}, max {ratios[-1]:.4f}; "
+          f"walls {json.dumps({k: [round(w, 5) for w in v] for k, v in walls.items()})}")
 
 
 def check_mode(name, r, As, b, x_true=None, tol=TOL, proj64=None):
@@ -539,7 +663,82 @@ def main():
     differ = int((r_packed.matvecs != r_dense.matvecs).sum())
     print(f"packed: {differ} of {B_ITER} lanes differ in matvec count from the "
           f"dense iterative warm-up call")
-    del As, bs, x_uncon, op, r_dense, r_packed
+    del op, r_dense, r_packed
+    torch.cuda.empty_cache()
+
+    # ---- (e) bbpgd_f: the README quick start on the same ensemble ----------
+    diag = As.diagonal(dim1=-2, dim2=-1)
+    cfg_bb = BBPGDfConfig(tol=TOL, max_matvecs=BUDGET)
+    zero_counts()
+    run_mode("bbpgd_f", lambda b: run_bbpgd_f(As, b, diag, proj, cfg_bb),
+             As, bs, x_uncon, gen, dense_sweep_bytes(B_ITER, N, 1), SWEEPS_BB,
+             lambda: gemv.LAUNCHES)
+    require(gemv.LAUNCHES > 0, "the bbpgd_f mode launched no GEMV kernel")
+    require(gemv.LAUNCHES_BF16 == 0, "the bbpgd_f mode launched the bf16 GEMV")
+    require(not any(symv.LAUNCHES.values()), "the bbpgd_f mode launched a symv kernel")
+    gemv_launches += gemv.LAUNCHES
+
+    # ---- (f) mixed: the bf16 -> f32 ladder on the same ensemble ------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    As, As16 = prepare_dense_batch(As, torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"mixed: prep prepare_dense_batch (B={B_ITER}, n={N}, bf16 copy "
+          f"{As16.numel() * 2 / 1e9:.3f} GB) {time.perf_counter() - t0:.3f} s")
+    mixed_bytes = (dense_sweep_bytes(B_ITER, N, SWEEPS_MIXED_BF16, 2)
+                   + dense_sweep_bytes(B_ITER, N, SWEEPS_MIXED_F32, 4))
+    zero_counts()
+    r_mixed = run_mode("mixed", lambda b: run_mixed(As, As16, b, diag, proj, cfg_bb),
+                       As, bs, x_uncon, gen, mixed_bytes, 1, lambda: gemv.LAUNCHES)
+    mixed_counts = (gemv.LAUNCHES, gemv.LAUNCHES_BF16)
+    require(gemv.LAUNCHES_BF16 > 0, "the mixed mode launched no bf16 GEMV")
+    require(gemv.LAUNCHES - gemv.LAUNCHES_BF16 > 0, "the mixed mode launched no f32 GEMV")
+    require(not any(symv.LAUNCHES.values()), "the mixed mode launched a symv kernel")
+    gemv_launches += gemv.LAUNCHES
+    gemv_launches_bf16 = gemv.LAUNCHES_BF16
+    print(f"mixed: GEMV launches {mixed_counts[0]} ({mixed_counts[1]} bf16, "
+          f"{mixed_counts[0] - mixed_counts[1]} f32) over the warm-up and timed calls")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ra = run_phase_a(As16, bs, diag, proj, cfg_bb)
+    torch.cuda.synchronize()
+    print(f"mixed: phase A alone, one call {time.perf_counter() - t0:.4f} s")
+    mv_a, mv = ra.matvecs.float(), r_mixed.matvecs.float()
+    print(f"mixed: per lane, phase A matvecs p50 {float(mv_a.median()):.1f} max "
+          f"{int(mv_a.max())}, its own (bf16) residual p50 {float(ra.residual.median()):.3e} "
+          f"min {float(ra.residual.min()):.3e} against phase_a_tol {PHASE_A_TOL} (share "
+          f"converged {float(ra.converged.float().mean())}); whole call p50 "
+          f"{float(mv.median()):.1f} max {int(mv.max())}")
+    del ra, r_mixed
+
+    # ---- rr-PCG on MixedPrecDense: a check, then interleaved pairs ---------
+    rr = {}
+    rr_runs = (("plain PCG", As, PCGConfig(tol=TOL, max_matvecs=BUDGET)),
+               ("rr-PCG", MixedPrecDense(As, As16),
+                PCGConfig(tol=TOL, max_matvecs=BUDGET, refresh_every=REFRESH_EVERY)))
+    for name, op_rr, cfg_rr in rr_runs:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = pcg.solve(op_rr, bs, proj=proj, config=cfg_rr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = check_mode(name, r, As, bs, x_uncon)
+        mv = r.matvecs.float()
+        rr[name] = (gemv.LAUNCHES, gemv.LAUNCHES_BF16)
+        print(f"{name} from x = 0 (B={B_ITER}): one call {wall:.4f} s, p50 matvecs "
+              f"{float(mv.median()):.1f}, max {int(mv.max())}, audited max residual "
+              f"{res:.3e}, GEMV launches {rr[name][0]} ({rr[name][1]} bf16)")
+        gemv_launches += gemv.LAUNCHES
+        gemv_launches_bf16 += gemv.LAUNCHES_BF16
+    require(rr["rr-PCG"][1] > 0 and rr["rr-PCG"][0] > rr["rr-PCG"][1],
+            f"rr-PCG launched bf16 and f32 GEMVs {rr['rr-PCG']}")
+    require(not any(symv.LAUNCHES.values()), "rr-PCG launched a symv kernel")
+    zero_counts()
+    rr_pairs(rr_runs, bs, gen, proj)
+    gemv_launches += gemv.LAUNCHES
+    gemv_launches_bf16 += gemv.LAUNCHES_BF16
+    del As, As16, bs, x_uncon, diag
     torch.cuda.empty_cache()
 
     # ---- direct serving mode -----------------------------------------------
@@ -573,7 +772,9 @@ def main():
     require(err < GEMV_F32_TOL, f"f32 gemv (B={B_CONE}, n={N_CONE}) rel err {err}")
     gemv_999 = {"max_abs_err": float((y.double() - ref).abs().max()),
                 "ms": time_ms(lambda: gemv.batched_gemv(As, x)),
-                "plain_ms": time_ms(lambda: gemv.batched_gemv_reference(As, x))}
+                "plain_ms": time_ms(lambda: gemv.batched_gemv_reference(As, x)),
+                "library_ms": time_ms(lambda: torch.bmm(As, x.unsqueeze(-1)))}
+    gemv_999["bound_ms"], gemv_999["bound_by"] = gemv_bound(As, x)
     del y, ref, x
     print(f"gemv f32 (B={B_CONE}, n={N_CONE}): rel err {err:.3e}, "
           f"kernel {gemv_999['ms']:.4f} ms ({As.numel() * 4 / gemv_999['ms'] / 1e6:.1f} GB/s), "
@@ -615,7 +816,8 @@ def main():
         {"name": "batched_gemv", "route": "cuda",
          "source": "ccqppy_tpu_torch/csrc/batched_gemv.cu",
          "replaces": "ccqppy_tpu/ops/pallas_kernels.py:65",
-         "launches": gemv_launches, **measured, "n999": gemv_999},
+         "launches": gemv_launches, "launches_bf16": gemv_launches_bf16, **measured,
+         "n999": gemv_999},
         *({"name": name, "route": "cuda", "source": symv_src,
            "replaces": f"ccqppy_tpu/ops/pallas_kernels.py:{line}",
            "launches": symv_launches[name], **measured_symv[name]}

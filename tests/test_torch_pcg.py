@@ -114,13 +114,6 @@ def test_batch_equals_lanes_alone():
                                    atol=1e-14)
 
 
-def test_residual_replacement_not_ported():
-    A, b = wishart_box_batch(2, 8, seed=0)
-    At, bt = problem_from_numpy(A, b, "cpu", torch.float64)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        pcg.solve(At, bt, config=pcg.PCGConfig(refresh_every=5))
-
-
 def test_curved_set_not_ported():
     """A set that is not polyhedral no longer raises: pcg delegates to
     fused MPRGP-BB with its tolerance, budget, gd and trace length."""

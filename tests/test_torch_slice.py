@@ -1,7 +1,8 @@
 """The whole slice at small size: the modes of the port wired exactly as
 chip_smoke.py wires them, against the JAX package wired as bench.py (box
-modes) and benchmarks/benchmark_cone_ensemble.py (cone mode) wire it, in
-f64 on the CPU, per lane.
+modes), benchmarks/benchmark_cone_ensemble.py (cone mode), the README's
+batched quick start (bbpgd_f mode) and ``solve_batched_mixed`` (mixed mode)
+wire it, in f64 on the CPU, per lane.
 """
 import importlib.util
 from pathlib import Path
@@ -171,6 +172,51 @@ def test_cone_mprgp_compaction_matches_benchmark_wiring(phase1, monkeypatch):
     np.testing.assert_allclose(rt.x.numpy(), np.asarray(rj.x), rtol=0, atol=1e-8)
     np.testing.assert_allclose(rt.residual.numpy(), np.asarray(rj.residual),
                                rtol=0, atol=1e-8)
+
+
+def test_bbpgd_f_mode_matches_readme_wiring():
+    """Mode (e): ``solve_batched("bbpgd_f", ...)`` from the Jacobi start."""
+    from ccqppy_tpu.models import BBPGDfConfig as JaxBBPGDfConfig
+    from ccqppy_tpu.parallel import solve_batched as jax_solve_batched
+
+    cs = _chip_smoke()
+    A, b, jproj, _, At, bt, proj, _ = _setup(45, cs)
+    jcfg = JaxBBPGDfConfig(tol=cs.TOL, max_matvecs=cs.BUDGET)
+    Aj, bj = jnp.asarray(A), jnp.asarray(b)
+    diag = jnp.diagonal(Aj, axis1=-2, axis2=-1)
+    rj = jax_solve_batched("bbpgd_f", Aj, bj, x0=jnp.clip(-bj / diag, -1.0, 1.0),
+                           proj=jproj, config=jcfg)
+    rt = cs.run_bbpgd_f(At, bt, At.diagonal(dim1=-2, dim2=-1), proj, config_from_jax(jcfg))
+    _assert_lanes_match(rj, rt)
+
+
+def test_mixed_mode_matches_ladder_wiring():
+    """Mode (f): the ladder on an f32 stack and its bf16 copy from
+    ``prepare_dense_batch``, from the Jacobi start, f64 iterates; and the
+    phase-A run that reads its per-lane matvecs."""
+    from ccqppy_tpu.models import BBPGDfConfig as JaxBBPGDfConfig
+    from ccqppy_tpu.ops.linop import CastDense as JaxCastDense
+    from ccqppy_tpu.parallel import solve_batched as jax_solve_batched
+    from ccqppy_tpu.parallel import solve_batched_mixed as jax_solve_batched_mixed
+
+    cs = _chip_smoke()
+    A, b = _ensemble(46)
+    A = A.astype(np.float32)
+    jproj = cq.box(-jnp.ones(N), jnp.ones(N), dtype=jnp.float64)
+    jcfg = JaxBBPGDfConfig(tol=cs.TOL, max_matvecs=cs.BUDGET)
+    Aj, bj = jnp.asarray(A), jnp.asarray(b)
+    Aj16 = Aj.astype(jnp.bfloat16)
+    jx0 = jnp.clip(-bj / jnp.diagonal(Aj, axis1=-2, axis2=-1), -1.0, 1.0)
+    rj = jax_solve_batched_mixed(Aj, bj, proj=jproj, config=jcfg, As_low=Aj16, x0=jx0)
+    As, As16 = cs.prepare_dense_batch(torch.from_numpy(A), torch.bfloat16)
+    bt, proj, cfg = torch.from_numpy(b), proj_from_jax(jproj), config_from_jax(jcfg)
+    diag = As.diagonal(dim1=-2, dim2=-1)
+    _assert_lanes_match(rj, cs.run_mixed(As, As16, bt, diag, proj, cfg))
+    ra_j = jax_solve_batched("bbpgd_f", JaxCastDense(Aj16), bj, x0=jx0, proj=jproj,
+                             config=JaxBBPGDfConfig(tol=cs.PHASE_A_TOL,
+                                                    max_matvecs=cs.PHASE_A_BUDGET))
+    ra = cs.run_phase_a(As16, bt, diag, proj, cfg)
+    np.testing.assert_array_equal(ra.matvecs.numpy(), np.asarray(ra_j.matvecs))
 
 
 def test_random_qp_batch_distribution():
