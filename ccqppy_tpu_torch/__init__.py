@@ -18,13 +18,15 @@ versions on CPU tensors.
                                    (``pcg``, with residual replacement),
                                    MPRGP and MPRGP-BB (``mprgp``),
                                    projected gradient (``pgd``), BBPGD and
-                                   BBPGDf (``bbpgd``), strong-convexity
-                                   accelerated projected gradient
-                                   (``apgd.solve_sc``) and direct serving
-                                   (``direct``).
+                                   BBPGDf (``bbpgd``), classic APGD and
+                                   APGD-AR with backtracking and
+                                   strong-convexity APGD (``apgd``), the
+                                   spectral projected gradient (``spg``)
+                                   and direct serving (``direct``).
 * ``ccqppy_tpu_torch.parallel`` -- batched solves with straggler compaction
                                    and the bf16 -> f32 precision ladder.
-* ``ccqppy_tpu_torch.utils``    -- random QP ensembles, guarded timing, and
+* ``ccqppy_tpu_torch.utils``    -- random QP ensembles, per-lane RNG keys
+                                   (``rng``), guarded timing, and
                                    conversion of problems, sets and configs
                                    from the JAX package.
 
@@ -34,11 +36,12 @@ Gradient convention: ``g = A x + b``.
 __version__ = "0.1.0"
 
 from ccqppy_tpu_torch import models, ops, parallel, utils  # noqa: F401
-from ccqppy_tpu_torch.models import (SOLVERS, APGDSCConfig,  # noqa: F401
-                                     BBPGDConfig, BBPGDfConfig, MPRGPBBConfig,
-                                     MPRGPConfig, PCGConfig, PGDConfig,
-                                     SolveResult, SolverConfig, apgd, bbpgd,
-                                     mprgp, pcg, pgd)
+from ccqppy_tpu_torch.models import (SOLVERS, APGDConfig,  # noqa: F401
+                                     APGDSCConfig, BBPGDConfig, BBPGDfConfig,
+                                     MPRGPBBConfig, MPRGPConfig, PCGConfig,
+                                     PGDConfig, SolveResult, SolverConfig,
+                                     SPGConfig, apgd, bbpgd, mprgp, pcg, pgd,
+                                     spg)
 from ccqppy_tpu_torch.ops import projections, symv  # noqa: F401
 from ccqppy_tpu_torch.ops.linop import (CastDense, DenseOperator,  # noqa: F401
                                         FastDense, LinearOperator,

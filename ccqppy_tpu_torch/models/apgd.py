@@ -1,25 +1,38 @@
-"""Strong-convexity accelerated projected gradient (``solve_sc``), batched.
+"""Accelerated projected gradient, batched: classic APGD with backtracking
+(``solve``), its anti-relaxation variant APGD-AR
+(``solve_anti_relaxation``), and the strong-convexity variant
+(``solve_sc``).
 
-Port of ``APGDSCConfig`` and ``solve_sc`` from ``ccqppy_tpu/models/apgd.py``
-(see that module for the algorithm and its measurements).  With spectral
-bounds L >= lambda_max and mu <= lambda_min per lane, the schedule is a
-fixed step 1/L with constant momentum beta = (1 - sqrt(q)) / (1 + sqrt(q)),
-q = clip(mu / L): one matvec per iteration, no backtracking.
+Port of ``APGDConfig``, ``solve``, ``solve_anti_relaxation``,
+``APGDSCConfig`` and ``solve_sc`` from ``ccqppy_tpu/models/apgd.py`` (see
+that module for the algorithms and their measurements).
 
-Verified convergence: the gradient of an iteration is fresh at the
-extrapolated point y, so the residual at the new iterate is a claim; a
-``verifying`` iteration spends its matvec on ``A x`` and only a fresh
-residual below tol may exit.  A failed claim resumes with a plain prox step
-from x.  Momentum restarts (O'Donoghue-Candes) when the prox-gradient
-direction opposes the momentum.
+Classic APGD (Pospisil 2015 Alg. 6 with Mazhar-2015 backtracking) starts
+from ``L0 = ||A (x0 - 1)|| / ||x0 - 1||`` (one matvec) and per iteration
+does ``A y`` and ``A x1`` for the trial point at step 1/L.  The JAX
+package's backtracking ``lax.while_loop`` becomes an inner host loop: while
+an active lane fails the quadratic bound (with the ``backtrack_slack``
+rounding slack), has budget left and has not reached ``max_backtracks``,
+every lane gets one batched trial matvec, and only the lanes still
+backtracking take it and count it, as under ``vmap``.  An iteration can
+therefore end one matvec over the budget.  APGD-AR restarts momentum when
+``g.(x1 - x) > 0`` and returns the best-residual iterate ``xhat`` with the
+LAST iterate's residual, as the JAX package does.
+
+``solve_sc``: with spectral bounds L >= lambda_max and mu <= lambda_min
+per lane, the schedule is a fixed step 1/L with constant momentum
+beta = (1 - sqrt(q)) / (1 + sqrt(q)), q = clip(mu / L): one matvec per
+iteration, no backtracking.  Verified convergence: the gradient of an
+iteration is fresh at the extrapolated point y, so the residual at the new
+iterate is a claim; a ``verifying`` iteration spends its matvec on ``A x``
+and only a fresh residual below tol may exit.  A failed claim resumes with
+a plain prox step from x.  Momentum restarts (O'Donoghue-Candes) when the
+prox-gradient direction opposes the momentum.
 
 Batching as in ``models/pcg.py``: lanes are the leading axis, every scalar
 of the JAX state is a ``(B,)`` tensor, lanes that are done keep their state
 through ``torch.where``, and the host reads one "any lane left?" flag per
-iteration.
-
-The classic ``apgd`` and ``apgd_ar`` (backtracking Nesterov) are not ported
-yet (ROADMAP queue 1 item 11).
+iteration (and classic APGD one more per backtracking trial).
 """
 from __future__ import annotations
 
@@ -29,10 +42,139 @@ from typing import NamedTuple
 import torch
 
 from ccqppy_tpu_torch.models.base import (SolverConfig, default_x0, init_trace,
-                                          make_result, pg_residual,
-                                          record_trace, select_lanes)
+                                          lanes, make_result, pg_residual,
+                                          record_trace, select_lanes, where_lanes)
 from ccqppy_tpu_torch.ops.linop import as_operator, power_spectral_bounds
 from ccqppy_tpu_torch.ops.projections import identity
+
+
+@dataclasses.dataclass(frozen=True)
+class APGDConfig(SolverConfig):
+    """backtrack_grow:  L multiplier on a failed Lipschitz trial.
+    relax:            L multiplier after each outer iteration.
+    max_backtracks:   bound on the trials of one iteration (a guard).
+    anti_relaxation:  the Mazhar best-iterate + restart variant.
+    backtrack_slack:  rounding slack of the Lipschitz test in units of
+                      machine eps (0 is the reference's strict test)."""
+
+    backtrack_grow: float = 2.0
+    relax: float = 0.9
+    max_backtracks: int = 64
+    anti_relaxation: bool = False
+    backtrack_slack: float = 16.0
+
+
+class _APGDState(NamedTuple):
+    x: torch.Tensor       # x_k
+    y: torch.Tensor       # extrapolated point y_k
+    theta: torch.Tensor
+    L: torch.Tensor
+    res: torch.Tensor
+    mv: torch.Tensor
+    it: torch.Tensor
+    done: torch.Tensor
+    # anti-relaxation tracking
+    resmin: torch.Tensor
+    xhat: torch.Tensor
+    trace: torch.Tensor
+
+
+class _Trial(NamedTuple):
+    x1: torch.Tensor
+    Ax1: torch.Tensor
+    ok: torch.Tensor
+
+
+def solve(A, b, x0=None, proj=None, config: APGDConfig = APGDConfig()):
+    """Classic APGD (or APGD-AR with ``config.anti_relaxation``) on a batch
+    of QPs: A (B, n, n) tensor or operator, b (B, n), x0 (B, n) or None."""
+    op = as_operator(A)
+    proj = proj if proj is not None else identity()
+    if b.dim() != 2:
+        raise ValueError(f"b must be (B, n), got {tuple(b.shape)}")
+    x0 = default_x0(b, x0, proj)
+    B = b.shape[0]
+    budget = config.max_matvecs
+    slack = config.backtrack_slack * torch.finfo(b.dtype).eps
+
+    # L0 = ||A (x0 - 1)|| / ||x0 - 1||, guarded against x0 == 1.
+    xdiff = x0 - 1
+    num = op.norm(op.matvec(xdiff))
+    den = op.norm(xdiff)
+    L0 = torch.where(den > 0, num / torch.where(den > 0, den, 1), 1.0)
+    inf = torch.full((B,), torch.inf, dtype=b.dtype, device=b.device)
+    s = _APGDState(x=x0, y=x0, theta=torch.ones_like(inf), L=L0, res=inf,
+                   mv=torch.ones(B, dtype=torch.int32, device=b.device),
+                   it=torch.zeros(B, dtype=torch.int32, device=b.device),
+                   done=torch.zeros(B, dtype=torch.bool, device=b.device),
+                   resmin=inf, xhat=x0, trace=init_trace(config, B, b.dtype, b.device))
+
+    def body(s, active):
+        Ay = op.matvec(s.y)
+        g = Ay + b
+        rhs_const = 0.5 * op.dot(s.y, Ay) + op.dot(s.y, b)
+
+        def trial(L):
+            """The point at step 1/L, its matvec, and whether the quadratic
+            bound f(x1) <= f(y) + g.(x1 - y) + L/2 ||x1 - y||^2 holds up to
+            the rounding slack."""
+            x1 = proj.project(s.y - g / lanes(L))
+            Ax1 = op.matvec(x1)
+            lhs = 0.5 * op.dot(x1, Ax1) + op.dot(x1, b)
+            d = x1 - s.y
+            rhs = rhs_const + op.dot(g, d) + 0.5 * L * op.dot(d, d)
+            return _Trial(x1, Ax1, lhs <= rhs + slack * (lhs.abs() + rhs.abs()))
+
+        L, c = s.L, trial(s.L)
+        mv = s.mv + 2
+        bt = torch.zeros_like(mv)
+        while True:
+            again = active & ~c.ok & (mv < budget) & (bt < config.max_backtracks)
+            if not bool(again.any()):
+                break
+            L = torch.where(again, L * config.backtrack_grow, L)
+            c = select_lanes(again, trial(L), c)
+            mv = mv + again
+            bt = bt + again
+        x1 = c.x1
+
+        # Momentum update (Pospisil 2015 lines 7-8).
+        th = s.theta
+        th1 = 0.5 * (-th * th + th * torch.sqrt(4 + th * th))
+        beta = th * (1 - th) / (th * th + th1)
+        y1 = lanes(1 + beta) * x1 - lanes(beta) * s.x
+        res = pg_residual(proj, x1, c.Ax1 + b, config.gd, op)
+        if config.anti_relaxation:
+            better = res < s.resmin
+            resmin = torch.where(better, res, s.resmin)
+            xhat = where_lanes(better, x1, s.xhat)
+            # Momentum restart on non-monotone progress (Mazhar lines 25-28).
+            restart = op.dot(g, x1 - s.x) > 0
+            y1 = where_lanes(restart, x1, y1)
+            th1 = torch.where(restart, 1.0, th1)
+        else:
+            resmin, xhat = s.resmin, s.xhat
+        done = (res < config.tol) | (mv >= budget)
+        return _APGDState(x1, y1, th1, L * config.relax, res, mv, s.it + 1, done,
+                          resmin, xhat, record_trace(s.trace, s.it, res))
+
+    while True:
+        active = ~s.done
+        if not bool(active.any()):
+            break
+        s = select_lanes(active, body(s, active), s)
+    # APGD-AR reports its best iterate with the last iterate's residual.
+    x_out = s.xhat if config.anti_relaxation else s.x
+    return make_result(x_out, s.res, s.mv, s.it, budget, s.trace)
+
+
+def solve_anti_relaxation(A, b, x0=None, proj=None, config: APGDConfig = None):
+    """APGD-AR: best-iterate tracking and momentum restart."""
+    if config is None:
+        config = APGDConfig(anti_relaxation=True)
+    elif not config.anti_relaxation:
+        config = dataclasses.replace(config, anti_relaxation=True)
+    return solve(A, b, x0, proj, config=config)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +189,7 @@ class APGDSCConfig(SolverConfig):
     bound_iters: int = 32
 
 
-class _State(NamedTuple):
+class _SCState(NamedTuple):
     x: torch.Tensor
     y: torch.Tensor          # extrapolated point
     res: torch.Tensor
@@ -56,14 +198,6 @@ class _State(NamedTuple):
     done: torch.Tensor
     verifying: torch.Tensor  # a stale-gradient claim awaits a fresh check
     trace: torch.Tensor
-
-
-def _not_ported(*args, **kwargs):
-    raise NotImplementedError("classic APGD and APGD-AR (backtracking Nesterov) are "
-                              "not ported yet (ROADMAP queue 1 item 11)")
-
-
-solve = solve_anti_relaxation = _not_ported
 
 
 def solve_sc(A, b, x0=None, proj=None, config: APGDSCConfig = APGDSCConfig()):
@@ -94,7 +228,7 @@ def solve_sc(A, b, x0=None, proj=None, config: APGDSCConfig = APGDSCConfig()):
     beta = (1 - torch.sqrt(q)) / (1 + torch.sqrt(q))
 
     x_init = proj.project(x0)
-    s = _State(x=x_init, y=x_init,
+    s = _SCState(x=x_init, y=x_init,
                res=torch.full((B,), torch.inf, dtype=b.dtype, device=b.device),
                mv=torch.full((B,), mv0, dtype=torch.int32, device=b.device),
                it=torch.zeros(B, dtype=torch.int32, device=b.device),
@@ -118,7 +252,7 @@ def solve_sc(A, b, x0=None, proj=None, config: APGDSCConfig = APGDSCConfig()):
         y_next = torch.where(ver, x_next, x1 + b_eff * (x1 - s.x))
         done = done_v | (mv >= budget)
         verifying = ~s.verifying & (res < config.tol) & ~done
-        return _State(x_next, y_next, res, mv, s.it + 1, done, verifying,
+        return _SCState(x_next, y_next, res, mv, s.it + 1, done, verifying,
                       record_trace(s.trace, s.it, res))
 
     while True:

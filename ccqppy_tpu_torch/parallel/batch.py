@@ -1,7 +1,8 @@
 """Scenario batching with straggler compaction.
 
-Port of ``solve_batched``, ``host_compact_finish`` and
-``solve_batched_fused_compact`` from ``ccqppy_tpu/parallel/batch.py``.
+Port of ``solve_batched``, ``solve_batched_compact``,
+``host_compact_finish`` and ``solve_batched_fused_compact`` from
+``ccqppy_tpu/parallel/batch.py``.
 The port's solvers are batched already, so ``solve_batched`` is a direct
 call.  Compaction gathers the unconverged lanes (plain indexing of a raw
 stack, ``take`` of an operator) and re-solves exactly those lanes: per-lane
@@ -11,8 +12,18 @@ power-of-two padding, which only bounded recompilation, is not needed.
 Projection parameters are shared by all lanes, or, with
 ``proj_batched=True``, carry a leading lane axis on every buffer; they then
 broadcast against the ``(B, n)`` points as they are, and compaction gathers
-them with the lanes (``Projection.take``).  RNG keys (the SPG solver's) are
-not ported.
+them with the lanes (``Projection.take``).
+
+RNG keys (the SPG solver's) are a ``(B,)`` int64 tensor of per-lane seeds
+(``utils.rng``), passed as ``keys=`` to the solver (one that takes none
+raises ``TypeError``, as in the JAX package) and gathered with the lanes.
+A lane's draws depend only on its key and its own iteration count, so a
+gathered straggler keeps its stream.  ``solve_batched_compact`` restarts
+phase 2 on the same keys, as the JAX package does; the fused path gives
+phase 2, in the bucket and in the host fallback, ``fold_in(keys, 1)``.
+With no keys, SPG seeds its batch with ``split_keys(0, B)``, which in a
+compacted batch depends on the lane's place in it: pass keys for streams
+that follow the lanes.
 """
 from __future__ import annotations
 
@@ -23,6 +34,7 @@ import torch
 from ccqppy_tpu_torch.models import SOLVERS
 from ccqppy_tpu_torch.models.base import SolveResult
 from ccqppy_tpu_torch.ops.linop import LinearOperator
+from ccqppy_tpu_torch.utils import rng
 
 
 def _get_solver(solver):
@@ -31,10 +43,13 @@ def _get_solver(solver):
     return solver
 
 
-def _no_keys(keys):
+def _solver_kwargs(config, keys):
+    """The keyword arguments of a solver call: the config, if any, and the
+    keys, if any."""
+    kwargs = {} if config is None else {"config": config}
     if keys is not None:
-        raise NotImplementedError("per-lane RNG keys serve the SPG solver, "
-                                  "which is not ported yet (ROADMAP queue 1 item 11)")
+        kwargs["keys"] = keys
+    return kwargs
 
 
 def _check_lane_proj(proj, B, proj_batched):
@@ -57,12 +72,48 @@ def _lane_proj(proj, idx, proj_batched):
 def solve_batched(solver, A, b, x0=None, proj=None, config=None, keys=None,
                   proj_batched=False):
     """Solve a batch of QPs: A (B, n, n), b (B, n), x0 (B, n) or None.
+    ``keys``: (B,) int64 per-lane seeds for a solver that takes them (SPG).
     Returns a ``SolveResult`` with a leading lane axis on every field."""
-    _no_keys(keys)
+    if keys is not None:
+        rng.check_keys(keys, b.shape[0], b.device)
     _check_lane_proj(proj, b.shape[0], proj_batched)
+    return _get_solver(solver)(A, b, x0=x0, proj=proj, **_solver_kwargs(config, keys))
+
+
+def _phase_configs(config, phase1_matvecs):
+    """The two phases' configs: phase 1 on ``phase1_matvecs``, phase 2 on
+    what phase 1 left of ``config.max_matvecs`` (at least 4)."""
+    remaining = int(config.max_matvecs) - int(phase1_matvecs)
+    if remaining < 4:
+        raise ValueError(
+            f"phase1_matvecs={phase1_matvecs} leaves {remaining} < 4 matvecs "
+            f"for phase 2 of a max_matvecs={config.max_matvecs} budget; pick "
+            "a smaller phase-1 budget (~2x the median solve cost)")
+    return (dataclasses.replace(config, max_matvecs=int(phase1_matvecs)),
+            dataclasses.replace(config, max_matvecs=remaining))
+
+
+def solve_batched_compact(solver, A, b, phase1_matvecs, x0=None, proj=None,
+                          config=None, keys=None, proj_batched=False):
+    """Two-phase batched solve with straggler compaction on the host.
+
+    Phase 1 solves every lane on a budget of ``phase1_matvecs`` (pick ~2x
+    the median cost); phase 2 gathers the unconverged lanes, warm-starts
+    them from their phase-1 iterates and runs them on the budget phase 1
+    left.  Matvec and iteration counts accumulate per lane.  Phase 2 runs
+    on the same ``keys`` as phase 1, as the JAX package's does.  The
+    continuation is not trajectory-identical to an uninterrupted solve
+    (step sizes re-seed at the restart): convergence semantics, not
+    trajectories, are preserved."""
     fn = _get_solver(solver)
-    kwargs = {} if config is None else {"config": config}
-    return fn(A, b, x0=x0, proj=proj, **kwargs)
+    cfg1, cfg2 = _phase_configs(config, phase1_matvecs)
+    r1 = solve_batched(fn, A, b, x0=x0, proj=proj, config=cfg1, keys=keys,
+                       proj_batched=proj_batched)
+
+    def run2(A2, b2, x02, proj2, keys2):
+        return fn(A2, b2, x0=x02, proj=proj2, **_solver_kwargs(cfg2, keys2))
+
+    return host_compact_finish(run2, A, b, r1, proj, keys=keys, proj_batched=proj_batched)
 
 
 def _gather_A(A, idx):
@@ -90,17 +141,25 @@ def _scatter(r1, idx, r2):
     )
 
 
-def host_compact_finish(run2, A, b, r1, proj, eligible=None, proj_batched=False):
+def _run_lanes(run2, A, b, x, proj, keys, idx, proj_batched):
+    """``run2`` on lanes ``idx``: their Hessians, right-hand sides, start
+    points, projection (with ``proj_batched``) and keys (if any)."""
+    return run2(_gather_A(A, idx), b[idx], x[idx], _lane_proj(proj, idx, proj_batched),
+                None if keys is None else keys[idx])
+
+
+def host_compact_finish(run2, A, b, r1, proj, keys=None, eligible=None,
+                        proj_batched=False):
     """Gather the lanes of ``r1`` selected by ``eligible`` (default: the
     unconverged ones), re-solve them warm-started via
-    ``run2(A2, b2, x02, proj2) -> SolveResult`` and scatter the results
-    back.  With ``proj_batched`` the projection's lanes are gathered too."""
+    ``run2(A2, b2, x02, proj2, keys2) -> SolveResult`` and scatter the
+    results back.  With ``proj_batched`` the projection's lanes are
+    gathered too, and with ``keys`` the keys (``keys2`` is None without)."""
     mask = ~r1.converged if eligible is None else eligible
     idx = torch.nonzero(mask).squeeze(1)
     if idx.numel() == 0:
         return r1
-    return _scatter(r1, idx, run2(_gather_A(A, idx), b[idx], r1.x[idx],
-                                  _lane_proj(proj, idx, proj_batched)))
+    return _scatter(r1, idx, _run_lanes(run2, A, b, r1.x, proj, keys, idx, proj_batched))
 
 
 def solve_batched_fused_compact(solver, A, b, phase1_matvecs, x0=None,
@@ -115,33 +174,30 @@ def solve_batched_fused_compact(solver, A, b, phase1_matvecs, x0=None,
     the overflow lanes keep their honest phase-1 state (converged=False);
     with ``host_fallback=True`` a further compacted pass finishes them.
     A: (B, n, n) tensor or operator; the projection is shared by all lanes,
-    or per lane with ``proj_batched``.
+    or per lane with ``proj_batched``.  Phase 2 runs on
+    ``fold_in(keys, 1)``, in the bucket and in the fallback alike.
     """
     if not isinstance(solver, str):
         raise TypeError("solve_batched_fused_compact takes a solver NAME")
-    _no_keys(keys)
+    if keys is not None:
+        rng.check_keys(keys, b.shape[0], b.device)
     _check_lane_proj(proj, b.shape[0], proj_batched)
-    remaining = int(config.max_matvecs) - int(phase1_matvecs)
-    if remaining < 4:
-        raise ValueError(
-            f"phase1_matvecs={phase1_matvecs} leaves {remaining} < 4 matvecs "
-            f"for phase 2 of a max_matvecs={config.max_matvecs} budget")
-    cfg1 = dataclasses.replace(config, max_matvecs=int(phase1_matvecs))
-    cfg2 = dataclasses.replace(config, max_matvecs=remaining)
+    cfg1, cfg2 = _phase_configs(config, phase1_matvecs)
     fn = _get_solver(solver)
 
-    def run2(A2, b2, x02, proj2):
-        return fn(A2, b2, x0=x02, proj=proj2, config=cfg2)
+    def run2(A2, b2, x02, proj2, keys2):
+        return fn(A2, b2, x0=x02, proj=proj2, **_solver_kwargs(cfg2, keys2))
 
-    r = fn(A, b, x0=x0, proj=proj, config=cfg1)
+    r = fn(A, b, x0=x0, proj=proj, **_solver_kwargs(cfg1, keys))
+    # Phase 2 draws from a stream of its own: each lane's key with 1 folded in.
+    keys2 = None if keys is None else rng.fold_in(keys, 1)
     idx = torch.nonzero(~r.converged).squeeze(1)[:int(bucket)]
     if idx.numel() > 0:
-        r = _scatter(r, idx, run2(_gather_A(A, idx), b[idx], r.x[idx],
-                                  _lane_proj(proj, idx, proj_batched)))
+        r = _scatter(r, idx, _run_lanes(run2, A, b, r.x, proj, keys2, idx, proj_batched))
     if not host_fallback:
         return r
     # Overflow lanes spent only the phase-1 budget; lanes that exhausted the
     # full budget keep their honest converged=False.
     eligible = ~r.converged & (r.matvecs < int(config.max_matvecs))
-    return host_compact_finish(run2, A, b, r, proj, eligible=eligible,
+    return host_compact_finish(run2, A, b, r, proj, keys=keys2, eligible=eligible,
                                proj_batched=proj_batched)

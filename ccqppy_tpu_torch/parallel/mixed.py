@@ -98,7 +98,7 @@ def solve_batched_mixed(As, bs, proj=None, config=None, *, As_low=None,
     fn_f, cfg_cls_f = SOLVERS[fixup_solver]
     cfg_f = cfg_cls_f(tol=config.tol, max_matvecs=int(config.max_matvecs), gd=config.gd)
 
-    def run2(A2, b2, x02, proj2):
+    def run2(A2, b2, x02, proj2, keys2):
         return fn_f(A2, b2, x0=x02, proj=proj2, config=cfg_f)
 
     return host_compact_finish(run2, As, bs, result, proj)

@@ -11,20 +11,22 @@ import dataclasses
 import numpy as np
 import torch
 
-from ccqppy_tpu_torch.models.apgd import APGDSCConfig
+from ccqppy_tpu_torch.models.apgd import APGDConfig, APGDSCConfig
 from ccqppy_tpu_torch.models.base import SolverConfig
 from ccqppy_tpu_torch.models.bbpgd import BBPGDConfig, BBPGDfConfig
 from ccqppy_tpu_torch.models.mprgp import MPRGPBBConfig, MPRGPConfig
 from ccqppy_tpu_torch.models.pcg import PCGConfig
 from ccqppy_tpu_torch.models.pgd import PGDConfig
+from ccqppy_tpu_torch.models.spg import SPGConfig
 from ccqppy_tpu_torch.ops import projections as P
 from ccqppy_tpu_torch.ops.linop import (CastDense, DenseOperator, FastDense,
                                         MixedPrecDense, SpectralDense,
                                         SymmetricPackedDense)
 
-_CONFIGS = {c.__name__: c for c in (SolverConfig, PCGConfig, APGDSCConfig,
-                                    MPRGPConfig, MPRGPBBConfig, PGDConfig,
-                                    BBPGDConfig, BBPGDfConfig)}
+_CONFIGS = {c.__name__: c for c in (SolverConfig, PCGConfig, APGDConfig,
+                                    APGDSCConfig, MPRGPConfig, MPRGPBBConfig,
+                                    PGDConfig, BBPGDConfig, BBPGDfConfig,
+                                    SPGConfig)}
 
 
 def problem_from_numpy(A, b, device, dtype):

@@ -39,13 +39,23 @@ checked on 16 lanes against the plain f64 version and against eigvalsh);
 every call starts from the cone-Jacobi point ``proj(-b / diag A)``.  Two
 runs: (a) ``apgd_sc`` on ``SpectralDense``, the headline; (b) fused
 MPRGP-BB with straggler compaction (phase 1 at 43 matvecs, a 256-lane
-bucket).  Every matvec of the mode is the GEMV kernel.
+bucket); (g) SPG, the benchmark's SPG row: ``solve_batched("spg", ...)``
+from x = 0 with per-lane keys from seed 1, then one untimed, audited call
+of ``solve_batched_fused_compact("spg", ...)`` with the same keys, phase 1
+at twice the first call's p50 and a 256-lane bucket, so that phase 2 runs
+on ``fold_in(keys, 1)``; (h) APGD-AR, the disjoint study's solver, from
+the cone-Jacobi start.  Every matvec of the mode is the GEMV kernel.
+
+The box section adds (i) classic APGD, the single-constraint study's
+solver, on the iterative mode's ensemble from its Jacobi start, at the
+study's budget of 5000 matvecs.  Last, the README's quick start: SPG on
+its 3x3 box QP at B=1.
 
 Steps: build the CUDA kernels from ``ccqppy_tpu_torch/csrc``; hold each
 kernel's entry points against their plain PyTorch versions on the card
 (the GEMV also on A and x at storage offsets of 1-3 elements, bitwise);
 time the GEMV against ``einsum`` in interleaved pairs at five shapes
-("gemv pairs"); run the six modes and the rr-PCG check at full width,
+("gemv pairs"); run the modes and the rr-PCG check at full width,
 audit every lane's true residual with the plain f64 GEMV of the dense
 stack, and check that the kernels carried each mode (launch counts are
 zeroed just before a mode and read just after it; ``gemv.LAUNCHES_BF16``
@@ -62,13 +72,14 @@ import time
 
 import torch
 
-from ccqppy_tpu_torch.models import pcg
-from ccqppy_tpu_torch.models.apgd import APGDSCConfig
+from ccqppy_tpu_torch.models import pcg, spg
+from ccqppy_tpu_torch.models.apgd import APGDConfig, APGDSCConfig
 from ccqppy_tpu_torch.models.base import pg_residual
 from ccqppy_tpu_torch.models.bbpgd import BBPGDfConfig
 from ccqppy_tpu_torch.models.direct import solve_direct_batched, spd_inverse_batch
 from ccqppy_tpu_torch.models.mprgp import MPRGPBBConfig
 from ccqppy_tpu_torch.models.pcg import PCGConfig
+from ccqppy_tpu_torch.models.spg import SPGConfig
 from ccqppy_tpu_torch.ops import gemv, kernels, symv
 from ccqppy_tpu_torch.ops.linop import (CastDense, MixedPrecDense, SpectralDense,
                                         SymmetricPackedDense, estimate_spectral_bounds)
@@ -77,6 +88,7 @@ from ccqppy_tpu_torch.parallel import (prepare_dense_batch, solve_batched,
                                        solve_batched_fused_compact, solve_batched_mixed)
 from ccqppy_tpu_torch.utils.benchmark import dense_sweep_bytes, timed_run
 from ccqppy_tpu_torch.utils.random_qp import random_qp_batch
+from ccqppy_tpu_torch.utils.rng import split_keys
 
 N = 1000
 TOL = 2e-5
@@ -109,6 +121,18 @@ TOL_CONE = 1e-5
 BUDGET_CONE = 2000
 PHASE1_CONE = 43   # MPRGP-BB: ~p95 of the warm-started sweep count
 BUCKET_CONE = 256
+SEED_SPG = 1       # (g): the benchmark's split(PRNGKey(1), B), as port keys
+# Least sweeps of one call, for the timing guard: SPG's two init sweeps and
+# one step; APGD's L0 sweep and one step's two.
+SWEEPS_SPG = SWEEPS_APGD = 3
+BUDGET_APGD = 5000  # (i): the single-constraint study's budget
+# (i)'s tol, not the study's 2e-5.  In f32 classic APGD's residual does not
+# settle: it bounces in a band (median ~3.5e-4 at n=256 in both packages,
+# tests/test_torch_apgd.py::test_apgd_f32_residual_band_matches_jax), and a
+# lane exits when a dip of the band crosses tol.  At n=1000 dips below 2e-5
+# are 0.2-4% of the iterations, below 1e-4 12-18%, and at 2e-5 one lane of
+# 256 spent the 5000-matvec budget (tools/f32_cpu_study.py, seeds 0 and 5).
+TOL_APGD_BOX = 1e-4
 BOUND_LANES = 16   # lanes whose spectral bounds are checked
 BOUND_TOL = 1e-4   # f32 kernel estimate against the plain f64 estimate, relative
 SPECTRUM_TOL = 0.03  # |L / lambda_max - 1| and |mu / lambda_min - 1|
@@ -212,6 +236,43 @@ def run_cone_mprgp(As, b, diag, proj, cfg):
     return solve_batched_fused_compact(
         "mprgp_bb", As, b, PHASE1_CONE, x0=cone_x0(proj, diag, b), proj=proj,
         config=cfg, bucket=BUCKET_CONE, host_fallback=False)
+
+
+def run_cone_spg(As, b, proj, cfg, keys):
+    """One call of (g): the benchmark's SPG row, from x = 0."""
+    return solve_batched("spg", As, b, proj=proj, config=cfg, keys=keys)
+
+
+def run_cone_spg_compact(As, b, proj, cfg, keys, phase1):
+    """(g) with fused straggler compaction: phase 2 on fold_in(keys, 1)."""
+    return solve_batched_fused_compact("spg", As, b, phase1, proj=proj, config=cfg,
+                                       bucket=BUCKET_CONE, keys=keys)
+
+
+def run_cone_apgd_ar(As, b, diag, proj, cfg):
+    """One call of (h): APGD-AR from the cone-Jacobi start."""
+    return solve_batched("apgd_ar", As, b, x0=cone_x0(proj, diag, b), proj=proj, config=cfg)
+
+
+def run_box_apgd(As, b, diag, proj, cfg):
+    """One call of (i): classic APGD from the Jacobi start."""
+    return solve_batched("apgd", As, b, x0=jacobi_x0(diag, b), proj=proj, config=cfg)
+
+
+def readme_qp(dev):
+    """The README's quick start at B=1: a 3x3 QP whose optimum [1, 0, 1]
+    lies inside the box [-2, 2] x [-2, 2] x [-4, 5]."""
+    A = torch.tensor([[[2., -1., 0.], [-1., 2., -1.], [0., -1., 2.]]], device=dev)
+    b = -gemv.batched_gemv_reference(A, torch.tensor([[1., 0., 1.]], device=dev))
+    return A, b, box([-2., -2., -4.], [2., 2., 5.], device=dev)
+
+
+def apgd_trials(r, launches):
+    """Backtracking trials of an APGD call: per lane, the matvecs beyond the
+    L0 sweep and two a step; batched, the GEMV launches beyond the L0 sweep
+    and two for each step of the slowest lane."""
+    per_lane = r.matvecs - 1 - 2 * r.iterations
+    return int(per_lane.sum()), int(per_lane.max()), launches - 1 - 2 * int(r.iterations.max())
 
 
 def chunked_f64(plain, *args, chunk=256):
@@ -565,7 +626,7 @@ def run_mode(name, run, As, bs, x_uncon, gen, sweep_bytes, sweeps_floor, count,
              tol=TOL, proj64=None):
     """Warm-up on the unperturbed batch, then REPS timed perturbed calls.
     ``count()`` reads the launch count of the kernel that carries the mode's
-    matvecs.  Returns the warm-up call's result."""
+    matvecs.  Returns the warm-up call's result and its launches."""
     B = bs.shape[0]
     before = count()
     r = run(bs)
@@ -593,7 +654,7 @@ def run_mode(name, run, As, bs, x_uncon, gen, sweep_bytes, sweeps_floor, count,
           f"{float(mv.median()):.1f}, max matvecs {int(mv.max())}, "
           f"audited max residual {res:.3e}, kernel launches in warm-up call "
           f"{launches}")
-    return r
+    return r, launches
 
 
 def main():
@@ -632,9 +693,9 @@ def main():
                                       diag_boost=1.0, chunk=256)
     diag = As.diagonal(dim1=-2, dim2=-1)
     zero_counts()
-    r_dense = run_mode("iterative", lambda b: run_iterative(As, b, diag, proj, cfg),
-                       As, bs, x_uncon, gen, dense_sweep_bytes(B_ITER, N, 1), 10,
-                       lambda: gemv.LAUNCHES)
+    r_dense, _ = run_mode("iterative", lambda b: run_iterative(As, b, diag, proj, cfg),
+                          As, bs, x_uncon, gen, dense_sweep_bytes(B_ITER, N, 1), 10,
+                          lambda: gemv.LAUNCHES)
     gemv_launches = gemv.LAUNCHES
     require(gemv_launches > 0, "the iterative mode launched no GEMV kernel")
     del diag
@@ -649,9 +710,9 @@ def main():
           f"{time.perf_counter() - t0:.2f} s, {packed_bytes / 1e9:.3f} GB of tiles "
           f"against {As.numel() * 4 / 1e9:.3f} GB dense")
     zero_counts()
-    r_packed = run_mode("packed", lambda b: run_packed(op, b, proj, cfg),
-                        As, bs, x_uncon, gen, packed_bytes, 10,
-                        lambda: symv.LAUNCHES["batched_symv_packed"])
+    r_packed, _ = run_mode("packed", lambda b: run_packed(op, b, proj, cfg),
+                           As, bs, x_uncon, gen, packed_bytes, 10,
+                           lambda: symv.LAUNCHES["batched_symv_packed"])
     # The packed operator's matvec is batched_symv_packed; the full layout
     # and the single-problem wrapper are not on this path.
     symv_launches = dict(symv.LAUNCHES)
@@ -688,8 +749,8 @@ def main():
     mixed_bytes = (dense_sweep_bytes(B_ITER, N, SWEEPS_MIXED_BF16, 2)
                    + dense_sweep_bytes(B_ITER, N, SWEEPS_MIXED_F32, 4))
     zero_counts()
-    r_mixed = run_mode("mixed", lambda b: run_mixed(As, As16, b, diag, proj, cfg_bb),
-                       As, bs, x_uncon, gen, mixed_bytes, 1, lambda: gemv.LAUNCHES)
+    r_mixed, _ = run_mode("mixed", lambda b: run_mixed(As, As16, b, diag, proj, cfg_bb),
+                          As, bs, x_uncon, gen, mixed_bytes, 1, lambda: gemv.LAUNCHES)
     mixed_counts = (gemv.LAUNCHES, gemv.LAUNCHES_BF16)
     require(gemv.LAUNCHES_BF16 > 0, "the mixed mode launched no bf16 GEMV")
     require(gemv.LAUNCHES - gemv.LAUNCHES_BF16 > 0, "the mixed mode launched no f32 GEMV")
@@ -738,7 +799,20 @@ def main():
     rr_pairs(rr_runs, bs, gen, proj)
     gemv_launches += gemv.LAUNCHES
     gemv_launches_bf16 += gemv.LAUNCHES_BF16
-    del As, As16, bs, x_uncon, diag
+
+    # ---- (i) classic APGD on the same ensemble -----------------------------
+    cfg_apgd = APGDConfig(tol=TOL_APGD_BOX, max_matvecs=BUDGET_APGD)
+    zero_counts()
+    r_apgd, launches = run_mode(
+        "box apgd", lambda b: run_box_apgd(As, b, diag, proj, cfg_apgd), As, bs, x_uncon,
+        gen, dense_sweep_bytes(B_ITER, N, 1), SWEEPS_APGD, lambda: gemv.LAUNCHES,
+        tol=TOL_APGD_BOX)
+    require(gemv.LAUNCHES_BF16 == 0, "the box apgd mode launched the bf16 GEMV")
+    require(not any(symv.LAUNCHES.values()), "the box apgd mode launched a symv kernel")
+    print("box apgd: backtracking trials in the warm-up call: %d over all lanes (max %d "
+          "a lane), %d batched trial launches" % apgd_trials(r_apgd, launches))
+    gemv_launches += gemv.LAUNCHES
+    del As, As16, bs, x_uncon, diag, r_apgd
     torch.cuda.empty_cache()
 
     # ---- direct serving mode -----------------------------------------------
@@ -804,8 +878,67 @@ def main():
              lambda: gemv.LAUNCHES, tol=TOL_CONE, proj64=proj64_cone)
     require(not any(symv.LAUNCHES.values()), "cone run (b) launched a symv kernel")
     cone_launches += gemv.LAUNCHES
-    print(f"cone: GEMV launches {cone_launches} (prep, both runs' warm-up and timed calls)")
+
+    # (g) SPG from x = 0 with per-lane keys, uncompacted, then compacted.
+    keys = split_keys(SEED_SPG, B_CONE, dev)
+    cfg_spg = SPGConfig(tol=TOL_CONE, max_matvecs=BUDGET_CONE, criterion="eq25")
+    zero_counts()
+    r_spg, _ = run_mode("cone spg", lambda b: run_cone_spg(As, b, proj_cone, cfg_spg, keys),
+                        As, bs, None, gen, dense_sweep_bytes(B_CONE, N_CONE, 1), SWEEPS_SPG,
+                        lambda: gemv.LAUNCHES, tol=TOL_CONE, proj64=proj64_cone)
+    phase1 = 2 * int(r_spg.matvecs.float().median())
+    before = gemv.LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = run_cone_spg_compact(As, bs, proj_cone, cfg_spg, keys, phase1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = check_mode("cone spg compacted", r, As, bs, tol=TOL_CONE, proj64=proj64_cone)
+    in_phase2 = int((r.matvecs > phase1).sum())
+    launches = gemv.LAUNCHES - before
+    require(in_phase2 >= 1, f"cone spg compacted: no lane reached phase 2 at phase 1 {phase1}")
+    require(launches >= int(r.matvecs.max()),
+            f"cone spg compacted: {launches} GEMV launches < {int(r.matvecs.max())} matvecs")
+    mv = r.matvecs.float()
+    print(f"cone spg compacted: one call {wall:.4f} s, phase 1 at {phase1} (2 x the first "
+          f"call's p50), {in_phase2} of {B_CONE} lanes in phase 2 ({in_phase2 / B_CONE:.4f}), "
+          f"p50 matvecs {float(mv.median()):.1f}, max {int(mv.max())}, audited max residual "
+          f"{res:.3e}, GEMV launches {launches}")
+    require(not any(symv.LAUNCHES.values()), "cone spg launched a symv kernel")
+    cone_launches += gemv.LAUNCHES
+    del r_spg, r
+
+    # (h) APGD-AR from the cone-Jacobi start.
+    cfg_ar = APGDConfig(tol=TOL_CONE, max_matvecs=BUDGET_CONE)
+    zero_counts()
+    r_ar, launches = run_mode(
+        "cone apgd_ar", lambda b: run_cone_apgd_ar(As, b, diag, proj_cone, cfg_ar), As, bs,
+        None, gen, dense_sweep_bytes(B_CONE, N_CONE, 1), SWEEPS_APGD, lambda: gemv.LAUNCHES,
+        tol=TOL_CONE, proj64=proj64_cone)
+    require(not any(symv.LAUNCHES.values()), "cone apgd_ar launched a symv kernel")
+    print("cone apgd_ar: backtracking trials in the warm-up call: %d over all lanes (max %d "
+          "a lane), %d batched trial launches" % apgd_trials(r_ar, launches))
+    cone_launches += gemv.LAUNCHES
+    print(f"cone: GEMV launches {cone_launches} (prep, every run's warm-up and timed calls)")
     gemv_launches += cone_launches
+    del As, bs, diag, r_ar
+    torch.cuda.empty_cache()
+
+    # ---- the README's quick start: SPG at B=1 ------------------------------
+    A3, b3, proj3 = readme_qp(dev)
+    zero_counts()
+    r = spg.solve(A3, b3, proj=proj3, config=SPGConfig(tol=1e-6, max_matvecs=5000))
+    torch.cuda.synchronize()
+    err = float((r.x - torch.tensor([[1., 0., 1.]], device=dev)).abs().max())
+    require(bool(r.converged.all()) and err < 1e-4,
+            f"README quick start: converged {r.converged.tolist()}, max |x - x*| {err}")
+    require(gemv.LAUNCHES >= int(r.matvecs.max()) and not any(symv.LAUNCHES.values()),
+            f"README quick start: {gemv.LAUNCHES} GEMV launches for {int(r.matvecs.max())} "
+            f"matvecs")
+    print(f"README quick start (spg.solve, B=1, n=3): x {r.x[0].tolist()}, matvecs "
+          f"{int(r.matvecs[0])}, residual {float(r.residual[0]):.3e}, max |x - x*| {err:.3e}, "
+          f"GEMV launches {gemv.LAUNCHES}")
+    gemv_launches += gemv.LAUNCHES
 
     # ``launches`` is each entry's count over the main path's modes (0 for
     # the two symv entries no mode runs); ``kernel_phase_launches`` counts

@@ -152,15 +152,22 @@ def test_solve_sc_budget_and_warm_start_match_jax():
 
 
 def test_classic_apgd_not_ported_and_config_carries_over():
-    A, b = cone_family(1, 6, 0)
-    At, bt = problem_from_numpy(A, b, "cpu", torch.float64)
-    for fn in (apgd.solve, apgd.solve_anti_relaxation):
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            fn(At, bt)
-    jcfg = JaxAPGDSCConfig(tol=3e-7, max_matvecs=77, restart=False, bound_iters=5)
-    cfg = config_from_jax(jcfg)
-    assert isinstance(cfg, apgd.APGDSCConfig)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    """The configs of the APGD family and SPG carry over field for field
+    (classic APGD, APGD-AR and SPG are ported now: tests/test_torch_apgd.py,
+    tests/test_torch_spg.py)."""
+    from ccqppy_tpu.models import APGDConfig as JaxAPGDConfig
+    from ccqppy_tpu.models import SPGConfig as JaxSPGConfig
+    from ccqppy_tpu_torch.models import spg
+
+    for jcfg, cls in (
+            (JaxAPGDSCConfig(tol=3e-7, max_matvecs=77, restart=False, bound_iters=5),
+             apgd.APGDSCConfig),
+            (JaxAPGDConfig(tol=2e-6, max_matvecs=90, relax=0.8, anti_relaxation=True),
+             apgd.APGDConfig),
+            (JaxSPGConfig(tol=4e-6, max_matvecs=60, m=7, criterion="d_norm"), spg.SPGConfig)):
+        cfg = config_from_jax(jcfg)
+        assert type(cfg) is cls
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
 
 
 def test_spectral_dense_take_and_checks():

@@ -87,7 +87,7 @@ def test_host_compact_finish_only_touches_eligible_lanes():
     eligible = torch.zeros(8, dtype=torch.bool)
     eligible[[1, 5]] = True
     r = batch.host_compact_finish(
-        lambda A2, b2, x02, p2: batch.solve_batched("pcg", A2, b2, x02, p2, cfg2),
+        lambda A2, b2, x02, p2, k2: batch.solve_batched("pcg", A2, b2, x02, p2, cfg2),
         At, bt, r1, proj, eligible=eligible)
     assert r.converged[[1, 5]].all()
     keep = ~eligible
@@ -100,10 +100,20 @@ def test_rejects_what_is_not_ported_or_invalid():
     A, b = _problem(24)
     At, bt = problem_from_numpy(A[:2], b[:2], "cpu", torch.float64)
     cfg = batch.SOLVERS["pcg"][1](tol=1e-8, max_matvecs=20)
-    with pytest.raises(NotImplementedError):
-        batch.solve_batched("pcg", At, bt, config=cfg, keys=torch.zeros(2))
+    # Keys are (B,) int64 per-lane seeds: a float tensor or a wrong length
+    # is refused by every batch entry point before any solve.
+    for keys, error in ((torch.zeros(2), TypeError),
+                        (torch.zeros(3, dtype=torch.int64), ValueError)):
+        with pytest.raises(error):
+            batch.solve_batched("pcg", At, bt, config=cfg, keys=keys)
+        with pytest.raises(error):
+            batch.solve_batched_compact("spg", At, bt, 5, config=cfg, keys=keys)
+        with pytest.raises(error):
+            batch.solve_batched_fused_compact("spg", At, bt, 5, config=cfg, keys=keys)
     with pytest.raises(ValueError):
         batch.solve_batched_fused_compact("pcg", At, bt, 18, config=cfg)
+    with pytest.raises(ValueError, match="< 4 matvecs"):
+        batch.solve_batched_compact("pcg", At, bt, 17, config=cfg)
     with pytest.raises(TypeError):
         batch.solve_batched_fused_compact(batch.SOLVERS["pcg"][0], At, bt, 5,
                                           config=cfg)
@@ -171,7 +181,32 @@ def test_compaction_takes_operators(kind):
     for a in (At, op):
         r1 = batch.solve_batched("pcg", a, bt, proj=proj, config=cfg1)
         runs.append(batch.host_compact_finish(
-            lambda A2, b2, x02, p2: batch.solve_batched("pcg", A2, b2, x02, p2, cfg),
+            lambda A2, b2, x02, p2, k2: batch.solve_batched("pcg", A2, b2, x02, p2, cfg),
             a, bt, r1, proj))
     assert bool(runs[0].converged.all())
     assert_same(*runs)
+
+
+@pytest.mark.parametrize("name", ["pcg", "bbpgd"])
+def test_solve_batched_compact_matches_jax(name):
+    """``solve_batched_compact``: phase 1 on a budget that leaves stragglers,
+    then the stragglers warm-started on what it left; per lane as the JAX
+    package's function of the same name."""
+    from ccqppy_tpu.models import BBPGDConfig as JaxBBPGDConfig
+    from ccqppy_tpu.parallel.batch import solve_batched_compact as jax_compact
+
+    A, b = _problem(28)
+    jproj = cq.box(-np.ones(N), np.ones(N), dtype=jnp.float64)
+    jcfg = {"pcg": JaxPCGConfig, "bbpgd": JaxBBPGDConfig}[name](tol=1e-8, max_matvecs=300)
+    rj = jax_compact(name, jnp.asarray(A), jnp.asarray(b), PHASE1, proj=jproj, config=jcfg)
+    At, bt = problem_from_numpy(A, b, "cpu", torch.float64)
+    rt = batch.solve_batched_compact(name, At, bt, PHASE1, proj=proj_from_jax(jproj),
+                                     config=config_from_jax(jcfg))
+    assert bool(np.asarray(rj.converged).all())
+    assert int((np.asarray(rj.matvecs) > PHASE1).sum()) > BUCKET        # stragglers
+    _assert_lanes_match(rj, rt)
+    with pytest.raises(ValueError, match="< 4 matvecs"):
+        jax_compact(name, jnp.asarray(A), jnp.asarray(b), 297, proj=jproj, config=jcfg)
+    with pytest.raises(ValueError, match="< 4 matvecs"):
+        batch.solve_batched_compact(name, At, bt, 297, proj=proj_from_jax(jproj),
+                                    config=config_from_jax(jcfg))

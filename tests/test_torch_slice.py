@@ -1,8 +1,10 @@
 """The whole slice at small size: the modes of the port wired exactly as
 chip_smoke.py wires them, against the JAX package wired as bench.py (box
-modes), benchmarks/benchmark_cone_ensemble.py (cone mode), the README's
-batched quick start (bbpgd_f mode) and ``solve_batched_mixed`` (mixed mode)
-wire it, in f64 on the CPU, per lane.
+modes), benchmarks/benchmark_cone_ensemble.py (cone mode, its SPG row
+included), the README's batched quick start (bbpgd_f mode),
+``solve_batched_mixed`` (mixed mode) and benchmarks/benchmark_random_ccqp.py
+(APGD-AR on the cone, classic APGD on the box) wire it, in f64 on the CPU,
+per lane.
 """
 import importlib.util
 from pathlib import Path
@@ -19,6 +21,7 @@ from ccqppy_tpu.models import PCGConfig as JaxPCGConfig
 from ccqppy_tpu.models.direct import direct_x0 as jax_direct_x0
 from ccqppy_tpu.models.direct import spd_inverse_batch as jax_spd_inverse_batch
 from ccqppy_tpu.parallel import solve_batched_fused_compact as jax_fused_compact
+from ccqppy_tpu_torch.utils import rng
 from ccqppy_tpu_torch.utils.convert import (config_from_jax, problem_from_numpy,
                                             proj_from_jax)
 from ccqppy_tpu_torch.utils.random_qp import random_qp_batch
@@ -254,3 +257,98 @@ def test_slice_on_cuda_matches_cpu_f64():
     # of the optimum (A = G G^T + n I), so the two are within 6 tol.
     np.testing.assert_allclose(r32.x.cpu().numpy(), r64.x.numpy(), rtol=0,
                                atol=6 * cs.TOL)
+
+
+def _spg_draw(monkeypatch, pairs):
+    """SPG in the batch entry points draws the JAX package's uniforms of
+    ``pairs`` (port keys, JAX keys), keyed by the port's keys."""
+    from functools import partial
+
+    from ccqppy_tpu_torch.models import spg
+    from ccqppy_tpu_torch.parallel import batch
+    from test_torch_spg import draw_table
+
+    monkeypatch.setitem(batch.SOLVERS, "spg",
+                        (partial(spg.solve, draw=draw_table(pairs, 3000)), spg.SPGConfig))
+
+
+def test_cone_spg_matches_benchmark_wiring(monkeypatch):
+    """Mode (g): the benchmark's SPG row, from x = 0 with the keys of seed 1,
+    uncompacted, then fused-compacted; phase 2 runs on fold_in(keys, 1) in
+    both packages."""
+    from ccqppy_tpu.models import SPGConfig as JaxSPGConfig
+    from ccqppy_tpu.parallel import solve_batched as jax_solve_batched
+
+    cs = _chip_smoke()
+    Aj, bj, jproj, _, _, At, bt, proj = _cone_setup(53, cs)
+    jcfg = JaxSPGConfig(tol=cs.TOL_CONE, max_matvecs=cs.BUDGET_CONE, criterion="eq25")
+    jk = jax.random.split(jax.random.PRNGKey(cs.SEED_SPG), B_CONE)
+    pk = cs.split_keys(cs.SEED_SPG, B_CONE)
+    jk1 = jax.vmap(lambda k: jax.random.fold_in(k, 1))(jk)
+    _spg_draw(monkeypatch, [(pk, jk), (rng.fold_in(pk, 1), jk1)])
+    rj = jax_solve_batched("spg", Aj, bj, proj=jproj, config=jcfg, keys=jk)
+    cfg = config_from_jax(jcfg)
+    rt = cs.run_cone_spg(At, bt, proj, cfg, pk)
+    _assert_cone_lanes_match(rj, rt)
+    # The card's batch has a long tail past twice its p50; eight lanes have
+    # none, so phase 1 here stops at the p50.
+    phase1 = int(np.median(np.asarray(rj.matvecs)))
+    rj = jax_fused_compact("spg", Aj, bj, phase1, proj=jproj, config=jcfg,
+                           bucket=cs.BUCKET_CONE, keys=jk)
+    rt = cs.run_cone_spg_compact(At, bt, proj, cfg, pk, phase1)
+    assert int((np.asarray(rj.matvecs) > phase1).sum()) >= 1          # phase 2 ran
+    _assert_cone_lanes_match(rj, rt)
+
+
+def test_cone_apgd_ar_matches_study_wiring():
+    """Mode (h): APGD-AR from the cone-Jacobi start, at the cone mode's tol
+    and budget."""
+    from ccqppy_tpu.models import APGDConfig as JaxAPGDConfig
+    from ccqppy_tpu.parallel import solve_batched as jax_solve_batched
+
+    cs = _chip_smoke()
+    Aj, bj, jproj, jx0, _, At, bt, proj = _cone_setup(54, cs)
+    jcfg = JaxAPGDConfig(tol=cs.TOL_CONE, max_matvecs=cs.BUDGET_CONE)
+    rj = jax_solve_batched("apgd_ar", Aj, bj, x0=jx0, proj=jproj, config=jcfg)
+    rt = cs.run_cone_apgd_ar(At, bt, At.diagonal(dim1=-2, dim2=-1), proj, config_from_jax(jcfg))
+    _assert_cone_lanes_match(rj, rt)
+
+
+def test_box_apgd_mode_matches_study_wiring():
+    """Mode (i): classic APGD from the Jacobi start at the study's budget."""
+    from ccqppy_tpu.models import APGDConfig as JaxAPGDConfig
+    from ccqppy_tpu.parallel import solve_batched as jax_solve_batched
+
+    cs = _chip_smoke()
+    A, b, jproj, _, At, bt, proj, _ = _setup(47, cs)
+    jcfg = JaxAPGDConfig(tol=cs.TOL_APGD_BOX, max_matvecs=cs.BUDGET_APGD)
+    Aj, bj = jnp.asarray(A), jnp.asarray(b)
+    diag = jnp.diagonal(Aj, axis1=-2, axis2=-1)
+    rj = jax_solve_batched("apgd", Aj, bj, x0=jnp.clip(-bj / diag, -1.0, 1.0), proj=jproj,
+                           config=jcfg)
+    rt = cs.run_box_apgd(At, bt, At.diagonal(dim1=-2, dim2=-1), proj, config_from_jax(jcfg))
+    _assert_lanes_match(rj, rt)
+    tot, most, batched = cs.apgd_trials(rt, 1 + 2 * int(rt.iterations.max()) + 5)
+    assert most >= 0 and tot >= most and batched == 5
+
+
+def test_readme_quick_start_in_f32():
+    """The README's quick start as chip_smoke.py runs it, in f32 on the CPU:
+    converged, x within 1e-4 of [1, 0, 1]."""
+    cs = _chip_smoke()
+    A, b, proj = cs.readme_qp("cpu")
+    assert A.dtype == b.dtype == torch.float32 and A.shape == (1, 3, 3)
+    r = cs.spg.solve(A, b, proj=proj, config=cs.SPGConfig(tol=1e-6, max_matvecs=5000))
+    assert bool(r.converged.all())
+    np.testing.assert_allclose(r.x.numpy(), [[1., 0., 1.]], atol=1e-4)
+
+
+def _assert_cone_lanes_match(rj, rt):
+    """Per lane on the cone: equal counts; x and the residual within 1e-8."""
+    assert bool(np.asarray(rj.converged).all())
+    np.testing.assert_array_equal(rt.converged.numpy(), np.asarray(rj.converged))
+    np.testing.assert_array_equal(rt.matvecs.numpy(), np.asarray(rj.matvecs))
+    np.testing.assert_array_equal(rt.iterations.numpy(), np.asarray(rj.iterations))
+    np.testing.assert_allclose(rt.x.numpy(), np.asarray(rj.x), rtol=0, atol=1e-8)
+    np.testing.assert_allclose(rt.residual.numpy(), np.asarray(rj.residual),
+                               rtol=0, atol=1e-8)
