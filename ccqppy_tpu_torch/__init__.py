@@ -10,10 +10,11 @@ versions on CPU tensors.
 * ``ccqppy_tpu_torch.ops``      -- box, bound, ball and Lorentz-cone
                                    projections and their blockwise, product
                                    and segment compositions; dense, bf16
-                                   (``CastDense``), mixed-precision, packed
-                                   symmetric and spectral operators; the
-                                   batched GEMV and symv kernels and their
-                                   build.
+                                   (``CastDense``), mixed-precision (bf16 ->
+                                   f32 and f32 -> f64), block-sparse,
+                                   packed symmetric and spectral operators;
+                                   the batched GEMV (f32, bf16, f64) and
+                                   symv kernels and their build.
 * ``ccqppy_tpu_torch.models``   -- the verified projected-CG face solver
                                    (``pcg``, with residual replacement),
                                    MPRGP and MPRGP-BB (``mprgp``),
@@ -43,11 +44,11 @@ from ccqppy_tpu_torch.models import (SOLVERS, APGDConfig,  # noqa: F401
                                      SPGConfig, apgd, bbpgd, mprgp, pcg, pgd,
                                      spg)
 from ccqppy_tpu_torch.ops import projections, symv  # noqa: F401
-from ccqppy_tpu_torch.ops.linop import (CastDense, DenseOperator,  # noqa: F401
-                                        FastDense, LinearOperator,
-                                        MixedPrecDense, SpectralDense,
-                                        SymmetricPackedDense, as_operator,
-                                        estimate_spectral_bounds)
+from ccqppy_tpu_torch.ops.linop import (BlockSparseOperator,  # noqa: F401
+                                        CastDense, DenseOperator, FastDense,
+                                        LinearOperator, MixedPrecDense,
+                                        SpectralDense, SymmetricPackedDense,
+                                        as_operator, estimate_spectral_bounds)
 from ccqppy_tpu_torch.ops.projections import (BallProj, BlockwiseProj,  # noqa: F401
                                               BoxProj, IdentityProj,
                                               LorentzConeProj, LowerBoundProj,

@@ -4,11 +4,18 @@
 // (a Pallas grid of (batch, row-tile) steps, each an MXU dot of a VMEM row
 // tile at HIGHEST precision).
 //
+// Three instances, (A, x = y = sums): (f32, f32), (bf16, f32) and (f64,
+// f64).  The TPU kernel has the first two; the JAX package computes an f64
+// GEMV with an XLA dot, and the f64 instance carries it here (the f64
+// DenseOperator and the exact sweep of the f64-exact rung).
+//
 // What bounds it: device-memory bytes.  Every element of A is read once and
 // used for one multiply-add (2 flops per 4 bytes in f32, per 2 bytes in
-// bf16), far below the card's ridge point, so the kernel's one job is to
-// keep enough bytes of A in flight to stream it at full bandwidth, with few
-// instructions per byte.  x and y are n floats per problem against n*n
+// bf16, per 8 bytes in f64), far below the card's ridge point (in f64 too:
+// 2 flops per 8 bytes at 3.35 TB/s is 0.84 TFLOP/s of the 33.5 the card
+// does outside the tensor cores), so the kernel's one job is to keep
+// enough bytes of A in flight to stream it at full bandwidth, with few
+// instructions per byte.  x and y are n elements per problem against n*n
 // elements of A.
 //
 // What the design does about it: one warp-specialised, persistent pipeline
@@ -33,7 +40,8 @@
 //     next stages in flight while the consumers read the oldest: at n = 1000
 //     f32 a stage is 68 KB and 3 fit, one block per SM, so up to 128 KB of A
 //     is in flight per SM where the card needs ~20 KB (3.35 TB/s times
-//     ~0.8 us over 132 SMs).
+//     ~0.8 us over 132 SMs).  In f64 a tile is 512 columns and a stage at
+//     n = 1000 is again 68 KB.
 //   * The enclosing span may reach past either end of A or x: each copy is
 //     clipped to the tensor's 16-byte aligned interior, and the consumers
 //     read the at most 16 / sizeof(T) - 1 elements at each end of the tensor
@@ -41,12 +49,13 @@
 //     not issued and not counted.  The arithmetic is the same either way.
 //   * Consumer warps (R / CONSUMERS = 2 rows each, so each x element read
 //     from shared memory serves two rows): lane l sums the elements
-//     j = l (mod 32) of its rows in increasing j with fp32 `fmaf`, carried in
-//     registers across the column tiles, then a warp-shuffle reduction.  The
-//     order depends only on j, so y is bitwise the same whatever the base
+//     j = l (mod 32) of its rows in increasing j with a fused multiply-add
+//     in the sums' type (`fmaf`, or `fma` in f64), carried in registers
+//     across the column tiles, then a warp-shuffle reduction.  The order
+//     depends only on j, so y is bitwise the same whatever the base
 //     alignment of A and x, and from launch to launch.  No tensor cores, no
 //     TF32, no atomics: the solver's convergence decisions rest on exact
-//     fp32 products.
+//     fp32 (f64) products.
 //   * A wrong byte count on a `full` barrier would hang the kernel.  The
 //     waits are plain spins all the same: bounding each with a clock and
 //     `__trap()` cost nothing in f32 but 3.9% in bf16 (1.5766 against
@@ -90,27 +99,38 @@ __host__ __device__ constexpr uint64_t align16(uint64_t v) { return (v + 15) & ~
 template <typename T> constexpr int64_t cmax() { return 4096 / sizeof(T); }
 
 // A ring slot holds the 16-byte aligned span around a segment of C
-// elements; a stage is R row slots of A and one slot of x.
+// elements; a stage is R row slots of A (elements T) and one slot of x
+// (elements X).
 template <typename T> __host__ __device__ constexpr uint32_t slot_bytes(int64_t C) {
   return (uint32_t)align16(C * sizeof(T)) + 16;
 }
-template <typename T> __host__ __device__ constexpr uint32_t stage_bytes(int64_t C) {
-  return R * slot_bytes<T>(C) + slot_bytes<float>(C);
+template <typename T, typename X> __host__ __device__ constexpr uint32_t stage_bytes(int64_t C) {
+  return R * slot_bytes<T>(C) + slot_bytes<X>(C);
 }
 constexpr int H100_SMEM_OPTIN = 232448;  // bytes of shared memory a block may use
-static_assert(RING_OFFSET + 3 * stage_bytes<float>(cmax<float>()) <= H100_SMEM_OPTIN &&
-              RING_OFFSET + 3 * stage_bytes<__nv_bfloat16>(cmax<__nv_bfloat16>()) <=
+static_assert(RING_OFFSET + 3 * stage_bytes<float, float>(cmax<float>()) <= H100_SMEM_OPTIN &&
+              RING_OFFSET + 3 * stage_bytes<__nv_bfloat16, float>(cmax<__nv_bfloat16>()) <=
+                  H100_SMEM_OPTIN &&
+              RING_OFFSET + 3 * stage_bytes<double, double>(cmax<double>()) <=
                   H100_SMEM_OPTIN,
               "three stages of the widest tile fit in a block's shared memory");
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// An element of A in the sums' type.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ double widen(double v) { return v; }
 
-// x as the product sees it: as it is for f32 A, rounded to bf16 for bf16 A.
+// x as the product sees it: as it is for f32 or f64 A, rounded to bf16 for
+// bf16 A.
 __device__ __forceinline__ float x_for(float v, float) { return v; }
 __device__ __forceinline__ float x_for(float v, __nv_bfloat16) {
   return __bfloat162float(__float2bfloat16(v));
 }
+__device__ __forceinline__ double x_for(double v, double) { return v; }
+
+// acc + a * b, rounded once.
+__device__ __forceinline__ float madd(float a, float b, float acc) { return fmaf(a, b, acc); }
+__device__ __forceinline__ double madd(double a, double b, double acc) { return fma(a, b, acc); }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -193,37 +213,37 @@ __device__ __forceinline__ void copied_range(const void* p, int sz, int len, Int
 // One warp's rows of one stage: lane l adds A[row, j] x[j] for j = l (mod 32)
 // in increasing j.  EDGE reads the elements outside [j0, j1) from memory;
 // it gives the same sums, and runs only at the ends of A and x.
-template <typename T, bool EDGE>
+template <typename T, typename X, bool EDGE>
 __device__ __forceinline__ void dot_rows(const T* const (&sa)[ROWS_PER_WARP],
                                          const T* const (&ga)[ROWS_PER_WARP],
                                          const int (&aj0)[ROWS_PER_WARP],
                                          const int (&aj1)[ROWS_PER_WARP],
-                                         const float* sx, const float* gx, int xj0, int xj1,
-                                         int len, int lane, float (&acc)[ROWS_PER_WARP]) {
+                                         const X* sx, const X* gx, int xj0, int xj1,
+                                         int len, int lane, X (&acc)[ROWS_PER_WARP]) {
 #pragma unroll 4
   for (int j = lane; j < len; j += 32) {
-    float xv = sx[j];
+    X xv = sx[j];
     if (EDGE && (j < xj0 || j >= xj1)) xv = gx[j];
     xv = x_for(xv, T());
 #pragma unroll
     for (int k = 0; k < ROWS_PER_WARP; ++k) {
       T av = sa[k][j];
       if (EDGE && (j < aj0[k] || j >= aj1[k])) av = ga[k][j];
-      acc[k] = fmaf(to_f32(av), xv, acc[k]);
+      acc[k] = madd(widen(av), xv, acc[k]);
     }
   }
 }
 
-template <typename T>
+template <typename T, typename X>
 __global__ void __launch_bounds__(THREADS)
-batched_gemv_kernel(const T* __restrict__ A, const float* __restrict__ x,
-                    float* __restrict__ y, int64_t batch, int64_t n, int64_t C,
+batched_gemv_kernel(const T* __restrict__ A, const X* __restrict__ x,
+                    X* __restrict__ y, int64_t batch, int64_t n, int64_t C,
                     int stages) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + MAX_STAGES;
   unsigned char* ring = smem + RING_OFFSET;
-  const uint32_t row_slot = slot_bytes<T>(C), stage_size = stage_bytes<T>(C);
+  const uint32_t row_slot = slot_bytes<T>(C), stage_size = stage_bytes<T, X>(C);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
@@ -240,7 +260,7 @@ batched_gemv_kernel(const T* __restrict__ A, const float* __restrict__ x,
   const int64_t row_blocks = (n + R - 1) / R;
   const int64_t units = batch * row_blocks;
   const Interior a_in = interior(A, (uint64_t)(batch * n * n) * sizeof(T));
-  const Interior x_in = interior(x, (uint64_t)(batch * n) * sizeof(float));
+  const Interior x_in = interior(x, (uint64_t)(batch * n) * sizeof(X));
   int s = 0;
   uint32_t phase = 0;
 
@@ -257,7 +277,7 @@ batched_gemv_kernel(const T* __restrict__ A, const float* __restrict__ x,
           sp = clip(A + ((b * n + r0 + lane) * n + c0), (uint64_t)len * sizeof(T), a_in);
           slot = lane * row_slot;
         } else if (lane == R) {
-          sp = clip(x + (b * n + c0), (uint64_t)len * sizeof(float), x_in);
+          sp = clip(x + (b * n + c0), (uint64_t)len * sizeof(X), x_in);
           slot = R * row_slot;
         }
         const uint32_t total = __reduce_add_sync(0xffffffffu, sp.bytes);
@@ -277,17 +297,17 @@ batched_gemv_kernel(const T* __restrict__ A, const float* __restrict__ x,
   for (int64_t u = blockIdx.x; u < units; u += gridDim.x) {
     const int64_t b = u / row_blocks, r0 = (u % row_blocks) * R;
     const int rows = (int)(n - r0 < R ? n - r0 : R);
-    float acc[ROWS_PER_WARP];
+    X acc[ROWS_PER_WARP];
 #pragma unroll
-    for (int k = 0; k < ROWS_PER_WARP; ++k) acc[k] = 0.f;
+    for (int k = 0; k < ROWS_PER_WARP; ++k) acc[k] = X(0);
     for (int64_t c0 = 0; c0 < n; c0 += C) {
       const int len = (int)(n - c0 < C ? n - c0 : C);
       const unsigned char* st = ring + s * stage_size;
-      const float* gx = x + (b * n + c0);
-      const float* sx = reinterpret_cast<const float*>(
+      const X* gx = x + (b * n + c0);
+      const X* sx = reinterpret_cast<const X*>(
           st + R * row_slot + (reinterpret_cast<uint64_t>(gx) & 15));
       int xj0, xj1;
-      copied_range(gx, sizeof(float), len, x_in, xj0, xj1);
+      copied_range(gx, sizeof(X), len, x_in, xj0, xj1);
       bool edge = xj0 != 0 || xj1 != len;
       const T* sa[ROWS_PER_WARP];
       const T* ga[ROWS_PER_WARP];
@@ -306,16 +326,16 @@ batched_gemv_kernel(const T* __restrict__ A, const float* __restrict__ x,
       }
       bar_wait(&full[s], phase);
       if (edge)
-        dot_rows<T, true>(sa, ga, aj0, aj1, sx, gx, xj0, xj1, len, lane, acc);
+        dot_rows<T, X, true>(sa, ga, aj0, aj1, sx, gx, xj0, xj1, len, lane, acc);
       else
-        dot_rows<T, false>(sa, ga, aj0, aj1, sx, gx, xj0, xj1, len, lane, acc);
+        dot_rows<T, X, false>(sa, ga, aj0, aj1, sx, gx, xj0, xj1, len, lane, acc);
       __syncwarp();
       if (lane == 0) bar_arrive(&empty[s]);
       if (++s == stages) { s = 0; phase ^= 1; }
     }
 #pragma unroll
     for (int k = 0; k < ROWS_PER_WARP; ++k) {
-      float v = acc[k];
+      X v = acc[k];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
       const int i = warp * ROWS_PER_WARP + k;
@@ -331,8 +351,8 @@ struct DeviceInfo {
   int sms = 0, smem_optin = 0;
 };
 
-template <typename T>
-int launch(const void* A, const float* x, float* y, int64_t batch, int64_t n,
+template <typename T, typename X>
+int launch(const void* A, const void* x, void* y, int64_t batch, int64_t n,
            cudaStream_t stream) {
   thread_local DeviceInfo devices[MAX_DEVICES];
   thread_local bool optin_set[MAX_DEVICES];
@@ -351,21 +371,21 @@ int launch(const void* A, const float* x, float* y, int64_t batch, int64_t n,
       return (int)err;
   }
   if (!optin_set[dev]) {
-    err = cudaFuncSetAttribute(batched_gemv_kernel<T>,
+    err = cudaFuncSetAttribute(batched_gemv_kernel<T, X>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, info.smem_optin);
     if (err != cudaSuccess) return (int)err;
     optin_set[dev] = true;
   }
 
   const int64_t C = n < cmax<T>() ? n : cmax<T>();
-  const size_t stage = stage_bytes<T>(C);
+  const size_t stage = stage_bytes<T, X>(C);
   int stages = (int)((info.smem_optin - RING_OFFSET) / stage);
   stages = stages < MAX_STAGES ? stages : MAX_STAGES;
   if (stages < 2) return (int)cudaErrorInvalidConfiguration;
   const size_t smem = RING_OFFSET + stages * stage;
 
   if (occ_dev != dev || occ_smem != smem) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ_blocks, batched_gemv_kernel<T>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ_blocks, batched_gemv_kernel<T, X>,
                                                         THREADS, smem);
     if (err != cudaSuccess) return (int)err;
     if (occ_blocks < 1) return (int)cudaErrorInvalidConfiguration;
@@ -375,8 +395,9 @@ int launch(const void* A, const float* x, float* y, int64_t batch, int64_t n,
   const int64_t units = batch * ((n + R - 1) / R);
   const int64_t resident = (int64_t)info.sms * occ_blocks;
   const unsigned grid = (unsigned)(units < resident ? units : resident);
-  batched_gemv_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(A), x, y, batch, n, C, stages);
+  batched_gemv_kernel<T, X><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(A), static_cast<const X*>(x), static_cast<X*>(y), batch, n, C,
+      stages);
   return (int)cudaGetLastError();
 }
 
@@ -384,12 +405,15 @@ int launch(const void* A, const float* x, float* y, int64_t batch, int64_t n,
 
 extern "C" int batched_gemv_f32(const void* A, const void* x, void* y,
                                 int64_t batch, int64_t n, void* stream) {
-  return launch<float>(A, static_cast<const float*>(x), static_cast<float*>(y),
-                       batch, n, static_cast<cudaStream_t>(stream));
+  return launch<float, float>(A, x, y, batch, n, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int batched_gemv_bf16(const void* A, const void* x, void* y,
                                  int64_t batch, int64_t n, void* stream) {
-  return launch<__nv_bfloat16>(A, static_cast<const float*>(x), static_cast<float*>(y),
-                               batch, n, static_cast<cudaStream_t>(stream));
+  return launch<__nv_bfloat16, float>(A, x, y, batch, n, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int batched_gemv_f64(const void* A, const void* x, void* y,
+                                int64_t batch, int64_t n, void* stream) {
+  return launch<double, double>(A, x, y, batch, n, static_cast<cudaStream_t>(stream));
 }

@@ -7,6 +7,12 @@ CUDA tensor the wrapper launches the hand-written Hopper kernel
 version ``batched_gemv_reference``.  No other path exists: a CUDA tensor
 never falls back to the plain version.
 
+The kernel has three instances, one for each pair (A, x) a path runs:
+(f32, f32) and (bf16, f32), the TPU kernel's, and (f64, f64), the f64
+``DenseOperator`` and the exact sweep of the f64-exact rung (an XLA dot in
+the JAX package).  f32 or bf16 A with f64 x is on no path and has no
+instance: on CUDA it raises.
+
 The kernel takes any n and any base alignment of A and x through one
 code path, so the TPU package's ``padded_batched_gemv`` (padding n to a
 multiple of 128) has no counterpart here.
@@ -23,6 +29,14 @@ LAUNCHES = 0
 #: The bf16 launches among ``LAUNCHES`` (the cheap sweeps of ``CastDense``
 #: and ``MixedPrecDense``).
 LAUNCHES_BF16 = 0
+#: The f64 launches among ``LAUNCHES`` (f64 ``DenseOperator``, the exact
+#: sweep of the f64-exact rung).
+LAUNCHES_F64 = 0
+
+#: (A dtype, x dtype) -> the kernel instance that takes them; y has x's dtype.
+INSTANCES = {(torch.float32, torch.float32): "batched_gemv_f32",
+             (torch.bfloat16, torch.float32): "batched_gemv_bf16",
+             (torch.float64, torch.float64): "batched_gemv_f64"}
 
 
 def batched_gemv_reference(A, x):
@@ -48,12 +62,15 @@ def _check(A, x):
 
 
 def _check_kernel_operands(A, x):
-    """What the CUDA kernel takes beyond ``_check``: float32 or bfloat16 A,
-    float32 x, both contiguous (at any storage offset)."""
-    if A.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the CUDA kernel takes float32 or bfloat16 A, not {A.dtype}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"the CUDA kernel takes float32 x, not {x.dtype}")
+    """What the CUDA kernel takes beyond ``_check``: a pair of ``INSTANCES``
+    (f32 A and x, bf16 A and f32 x, f64 A and x), both contiguous (at any
+    storage offset)."""
+    if (A.dtype, x.dtype) not in INSTANCES:
+        if A.dtype in (torch.float32, torch.bfloat16) and x.dtype == torch.float64:
+            raise TypeError(f"the CUDA kernel has no instance for {A.dtype} A with float64 x: "
+                            "that pair is on no path (ROADMAP, queue 2)")
+        raise TypeError(f"the CUDA kernel takes f32 A and x, bf16 A with f32 x, or f64 A "
+                        f"and x, not {A.dtype} A with {x.dtype} x")
     if not (A.is_contiguous() and x.is_contiguous()):
         raise ValueError("the CUDA kernel takes contiguous A and x")
 
@@ -61,11 +78,11 @@ def _check_kernel_operands(A, x):
 def batched_gemv(A, x):
     """y[b] = A[b] @ x[b] for A (B, n, n) and x (B, n) -> (B, n).
 
-    On CUDA: A is float32 or bfloat16 and x float32, both contiguous, the
-    kernel runs on the current stream and y is float32.  On the CPU: the
-    plain version, in any floating dtype.
+    On CUDA: (A, x) is a pair of ``INSTANCES``, both contiguous, the kernel
+    runs on the current stream and y has x's dtype.  On the CPU: the plain
+    version, in any floating dtype.
     """
-    global LAUNCHES, LAUNCHES_BF16
+    global LAUNCHES, LAUNCHES_BF16, LAUNCHES_F64
     _check(A, x)
     if A.device.type == "cpu":
         return batched_gemv_reference(A, x)
@@ -73,11 +90,10 @@ def batched_gemv(A, x):
         raise ValueError(f"batched_gemv runs on cuda or cpu, not {A.device}")
     _check_kernel_operands(A, x)
     B, n = x.shape
-    y = torch.empty((B, n), dtype=torch.float32, device=A.device)
+    y = torch.empty((B, n), dtype=x.dtype, device=A.device)
     if B == 0 or n == 0:
         return y
-    lib = kernels.load()
-    fn = lib.batched_gemv_f32 if A.dtype == torch.float32 else lib.batched_gemv_bf16
+    fn = getattr(kernels.load(), INSTANCES[A.dtype, x.dtype])
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = fn(A.data_ptr(), x.data_ptr(), y.data_ptr(), B, n, stream)
@@ -86,4 +102,6 @@ def batched_gemv(A, x):
     LAUNCHES += 1
     if A.dtype == torch.bfloat16:
         LAUNCHES_BF16 += 1
+    elif A.dtype == torch.float64:
+        LAUNCHES_F64 += 1
     return y

@@ -1,15 +1,17 @@
 """Linear operators for the QP Hessian ``A``, batched.
 
-Port of the dense family of ``ccqppy_tpu/ops/linop.py``: the
+Port of the single-device operators of ``ccqppy_tpu/ops/linop.py``: the
 ``LinearOperator`` protocol, ``DenseOperator``, ``FastDense``,
-``CastDense``, ``MixedPrecDense``, ``SymmetricPackedDense``,
-``SpectralDense`` with ``estimate_spectral_bounds``, and ``as_operator``.
+``BlockSparseOperator``, ``CastDense``, ``MixedPrecDense``,
+``SymmetricPackedDense``, ``SpectralDense`` with
+``estimate_spectral_bounds``, and ``as_operator``.
 A dense operator holds a ``(B, n, n)`` stack;
 ``matvec`` maps ``(B, n)`` to ``(B, n)`` through ``ops.gemv.batched_gemv``
-(the hand-written kernel on CUDA, exact fp32 FMA; for a bf16 stack the
-kernel's bf16 instance, which rounds x to bf16).  The packed symmetric
+(the hand-written kernel on CUDA, exact fp32 or f64 FMA; for a bf16 stack
+the kernel's bf16 instance, which rounds x to bf16).  The packed symmetric
 operator holds only the upper tiles and applies them through
-``ops.symv.batched_symv_packed``.  ``dot`` and every other reduction is per
+``ops.symv.batched_symv_packed``.  The block-sparse operator's matvec is
+plain PyTorch.  ``dot`` and every other reduction is per
 lane, over the last dimension; ``take(idx)`` restricts an operator to the
 lanes ``idx``.
 
@@ -18,6 +20,7 @@ counterpart: PyTorch runs each operation as written.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -112,6 +115,96 @@ class FastDense(DenseOperator):
         return FastDense(self.A[idx])
 
 
+class BlockSparseOperator(LinearOperator):
+    """Block-sparse symmetric operator in ELL layout, batched: every
+    block-row holds ``k_max`` dense ``bs x bs`` blocks, a shorter row padded
+    with zero blocks pointing at block-column 0 (a zero block adds nothing,
+    so any column is safe).  A single problem is B = 1.
+
+    Fields:
+      blocks: (B, nbr, k_max, bs, bs) float32 or float64 blocks.
+      cols:   (B, nbr, k_max) int64 block-column ids.
+      n:      logical dimension nbr * bs.
+
+    The matvec gathers x's blocks and sums the products over each block's
+    columns, then over k_max, in plain PyTorch: an elementwise product and a
+    sum over the last axis, so every product is exact in the sums' dtype
+    whatever the TF32 flags say.  The JAX package computes it with an XLA
+    gather and einsum, no Pallas kernel.  Build with ``from_scipy_bsr`` or
+    ``from_dense_blocks``.
+    """
+
+    def __init__(self, blocks, cols):
+        if blocks.dim() != 5 or blocks.shape[3] != blocks.shape[4]:
+            raise ValueError(f"blocks must be (B, nbr, k_max, bs, bs), got {tuple(blocks.shape)}")
+        if blocks.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"BlockSparseOperator takes float32 or float64 blocks, "
+                            f"not {blocks.dtype}")
+        if cols.shape != blocks.shape[:3] or cols.dtype != torch.int64:
+            raise TypeError(f"cols must be int64 of shape {tuple(blocks.shape[:3])}, got "
+                            f"{cols.dtype} {tuple(cols.shape)}")
+        if cols.device != blocks.device:
+            raise ValueError(f"blocks on {blocks.device} but cols on {cols.device}")
+        B, nbr, _, bs, _ = blocks.shape
+        self.blocks, self.cols, self.n = blocks, cols, int(nbr * bs)
+        # The rows of x's blocks in a flat (B * nbr, bs) view of x.
+        lane = torch.arange(B, dtype=torch.int64, device=cols.device)
+        self._rows = (cols + nbr * lane[:, None, None]).reshape(-1)
+
+    @staticmethod
+    def from_dense_blocks(blocks, cols):
+        """From ELL arrays: ``blocks (nbr, k_max, bs, bs)`` and ``cols
+        (nbr, k_max)`` of one problem, or both with a leading lane axis."""
+        if blocks.dim() == 4:
+            blocks, cols = blocks[None], cols[None]
+        return BlockSparseOperator(blocks.contiguous(), cols.to(torch.int64).contiguous())
+
+    @staticmethod
+    def from_scipy_bsr(mat, dtype=torch.float32, device=None):
+        """One problem (B = 1) from a ``scipy.sparse.bsr_matrix`` (or any
+        matrix scipy converts to one), with the JAX builder's blocks and
+        cols.  Vectorised: the slot of stored block i in its row is
+        ``i - indptr[row(i)]``."""
+        import scipy.sparse as sp
+
+        bsr = mat if sp.issparse(mat) and mat.format == "bsr" else sp.bsr_matrix(mat)
+        bs = bsr.blocksize[0]
+        if bsr.blocksize[0] != bsr.blocksize[1]:
+            raise ValueError("square blocks required")
+        nbr = bsr.shape[0] // bs
+        counts = np.diff(bsr.indptr)
+        nnzb = int(bsr.indptr[-1])
+        kmax = max(int(counts.max(initial=0)), 1)
+        row = np.repeat(np.arange(nbr), counts)
+        slot = np.arange(nnzb) - np.repeat(bsr.indptr[:-1], counts)
+        blocks = np.zeros((nbr, kmax, bs, bs), np.asarray(bsr.data).dtype)
+        cols = np.zeros((nbr, kmax), np.int64)
+        blocks[row, slot] = bsr.data[:nnzb]
+        cols[row, slot] = bsr.indices[:nnzb]
+        return BlockSparseOperator(torch.as_tensor(blocks[None], dtype=dtype, device=device),
+                                   torch.as_tensor(cols[None], device=device))
+
+    def matvec(self, x):
+        B, nbr, kmax, bs, _ = self.blocks.shape
+        acc = torch.promote_types(self.blocks.dtype, x.dtype)
+        xb = x.reshape(B * nbr, bs).to(acc).index_select(0, self._rows)
+        prod = (self.blocks.to(acc) * xb.view(B, nbr, kmax, 1, bs)).sum(dim=-1)
+        return prod.sum(dim=2).reshape(B, self.n)
+
+    def inf_norm(self):
+        return self.blocks.abs().sum(dim=(2, 4)).amax(dim=(1, 2))
+
+    def diagonal(self):
+        B, nbr, _, bs, _ = self.blocks.shape
+        rows = torch.arange(nbr, dtype=self.cols.dtype, device=self.cols.device)
+        on_diag = (self.cols == rows[None, :, None]).to(self.blocks.dtype)
+        diag_blocks = (self.blocks * on_diag[..., None, None]).sum(dim=2)
+        return torch.diagonal(diag_blocks, dim1=-2, dim2=-1).reshape(B, self.n)
+
+    def take(self, idx):
+        return BlockSparseOperator(self.blocks[idx], self.cols[idx])
+
+
 class CastDense(LinearOperator):
     """Dense stack stored in bfloat16, applied to a bf16 rounding of x with
     sums in ``promote(x.dtype, float32)``: the cheap rung of the
@@ -144,25 +237,29 @@ class CastDense(LinearOperator):
 
 
 class MixedPrecDense(LinearOperator):
-    """Dense operator carrying both precisions: ``matvec`` streams the
-    bfloat16 copy ``A_low`` (as ``CastDense``; sums in
-    ``promote(x.dtype, float32)``), ``matvec_exact`` the float32 ``A``.
-    The operand of residual-replacement PCG (``models.pcg`` with
-    ``refresh_every > 0``): the CG recurrence rides the cheap sweeps, every
-    refresh and reported residual the exact one.  Build with ``from_f32(A)``
-    or from ``parallel.prepare_dense_batch(As, torch.bfloat16)``.
+    """Dense operator carrying two precisions: ``matvec`` streams the low
+    copy ``A_low``, ``matvec_exact`` the full ``A``.  The operand of
+    residual-replacement PCG (``models.pcg`` with ``refresh_every > 0``):
+    the CG recurrence rides the cheap sweeps, every refresh and reported
+    residual the exact one.  Two pairs (A, A_low):
 
-    The JAX package's f64-exact rung (f64 ``A``, f32 ``A_low``) needs an f64
-    instance of the GEMV kernel, which does not exist yet (ROADMAP queue 1
-    item 12): an f64 ``A`` raises."""
+    * (float32, bfloat16), the bf16 -> f32 ladder: the cheap sweep is
+      ``CastDense``'s (x rounded to bf16, sums in
+      ``promote(x.dtype, float32)``).  Build with ``from_f32(A)`` or from
+      ``parallel.prepare_dense_batch(As, torch.bfloat16)``.
+    * (float64, float32), the f64-exact rung: the cheap sweep is the f32
+      GEMV of x rounded to f32, summed in f32 whatever x's dtype, and cast
+      back to x's dtype (the JAX package's choice: an f32 sweep, not an f64
+      one); the exact sweep is the GEMV kernel's f64 instance.
+    """
+
+    PAIRS = {torch.float32: torch.bfloat16, torch.float64: torch.float32}
 
     def __init__(self, A, A_low):
-        if A.dtype == torch.float64:
-            raise NotImplementedError(
-                "MixedPrecDense with an f64 A (the f64-exact rung) needs an f64 "
-                "instance of the GEMV kernel, not ported yet (ROADMAP queue 1 item 12)")
-        _check_stack("MixedPrecDense", A, (torch.float32,))
-        _check_stack("MixedPrecDense", A_low, (torch.bfloat16,))
+        _check_stack("MixedPrecDense", A, tuple(self.PAIRS))
+        if A_low.dtype != self.PAIRS[A.dtype]:
+            raise TypeError(f"MixedPrecDense pairs a {A.dtype} A with a "
+                            f"{self.PAIRS[A.dtype]} A_low, not {A_low.dtype}")
         if A_low.shape != A.shape:
             raise ValueError(f"A_low {tuple(A_low.shape)} must match A {tuple(A.shape)}")
         self.A, self.A_low = A, A_low
@@ -173,6 +270,8 @@ class MixedPrecDense(LinearOperator):
 
     def matvec(self, x):
         # The deliberately cheap sweep: its accuracy is that of A_low.
+        if self.A.dtype == torch.float64:
+            return batched_gemv(self.A_low, x.to(self.A_low.dtype)).to(x.dtype)
         return batched_gemv(self.A_low, x).to(x.dtype)
 
     def matvec_exact(self, x):

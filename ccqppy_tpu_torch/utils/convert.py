@@ -19,7 +19,8 @@ from ccqppy_tpu_torch.models.pcg import PCGConfig
 from ccqppy_tpu_torch.models.pgd import PGDConfig
 from ccqppy_tpu_torch.models.spg import SPGConfig
 from ccqppy_tpu_torch.ops import projections as P
-from ccqppy_tpu_torch.ops.linop import (CastDense, DenseOperator, FastDense,
+from ccqppy_tpu_torch.ops.linop import (BlockSparseOperator, CastDense,
+                                        DenseOperator, FastDense,
                                         MixedPrecDense, SpectralDense,
                                         SymmetricPackedDense)
 
@@ -39,13 +40,14 @@ def problem_from_numpy(A, b, device, dtype):
 
 def operator_from_jax(op, device, dtype):
     """The port's counterpart of a JAX ``DenseOperator``, ``FastDense``,
-    ``CastDense``, ``MixedPrecDense``, ``SymmetricPackedDense`` or
-    ``SpectralDense``, with its arrays on ``device`` in ``dtype``; the two
-    stacks of ``MixedPrecDense`` and the stack of ``CastDense`` keep their
-    own dtypes (a bfloat16 array is read through float32, which is exact).
-    ``Ap``, ``diag``, ``n``, ``tile``, ``L`` and ``mu`` carry over as they
-    are; a single problem gains a leading lane axis of one.  The arrays are
-    copied."""
+    ``CastDense``, ``MixedPrecDense``, ``SymmetricPackedDense``,
+    ``SpectralDense`` or ``BlockSparseOperator``, with its arrays on
+    ``device`` in ``dtype``; the two stacks of ``MixedPrecDense`` (f32 and
+    bf16, or f64 and f32) and the stack of ``CastDense`` keep their own
+    dtypes (a bfloat16 array is read through float32, which is exact), and
+    block-sparse ``cols`` become int64.  ``Ap``, ``diag``, ``n``, ``tile``,
+    ``L`` and ``mu`` carry over as they are; a single problem (or block-sparse
+    operator) gains a leading lane axis of one.  The arrays are copied."""
     def tensor(v, batched_dim, dtype=dtype):
         """``v`` as a tensor, in ``dtype`` or, for None, in its own."""
         a = np.array(v)
@@ -70,6 +72,8 @@ def operator_from_jax(op, device, dtype):
     if name == "SymmetricPackedDense":
         return SymmetricPackedDense(tensor(op.Ap, 4), tensor(op.diag, 2),
                                     int(op.n), int(op.tile))
+    if name == "BlockSparseOperator":
+        return BlockSparseOperator(tensor(op.blocks, 5), tensor(op.cols, 3, torch.int64))
     raise NotImplementedError(f"{name} is not ported yet")
 
 

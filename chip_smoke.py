@@ -48,18 +48,40 @@ the cone-Jacobi start.  Every matvec of the mode is the GEMV kernel.
 
 The box section adds (i) classic APGD, the single-constraint study's
 solver, on the iterative mode's ensemble from its Jacobi start, at the
-study's budget of 5000 matvecs.  Last, the README's quick start: SPG on
+study's budget of 5000 matvecs.  Then the README's quick start: SPG on
 its 3x3 box QP at B=1.
+
+Two modes take f64 and a sparse operator onto the card, each the
+configuration of a JAX benchmark unchanged:
+
+* (j) the f64-exact rung of ``benchmarks/benchmark_f64_wishart1k.py``:
+  B=64 raw Wishart QPs (``diag_boost=0``, condition ~1e5-1e7) of n=1000 in
+  f64, box [-1, 1], from the Jacobi start, residual-replacement PCG on
+  ``MixedPrecDense(A, A.float())`` (refresh every 128, segment drop 0.25):
+  every cheap sweep the GEMV kernel's f32 instance, every refresh its f64
+  instance.  The row at tol 1e-5 with a budget of 20,000: 3 timed calls,
+  each one call with per-lane stopping, none of the benchmark's
+  continuation chunks.  Beside it, plain f64 PCG on ``DenseOperator(A)``
+  (the f64 instance) on the same right-hand sides.  The benchmark's row at
+  tol 1e-10 takes minutes on the card: ``tools/f64_deep.py`` runs it.
+* (k) the huge QP of ``benchmarks/benchmark_huge_qp.py``: one box QP of
+  n = 1,000,000 on a block-tridiagonal ``BlockSparseOperator`` (4x4 blocks,
+  3 a block-row, 48 MB of f32, numpy's draws of the benchmark's builder),
+  PCG at tol 1e-9 with a budget of 10,000, b perturbed by 1e-4 N(0, 1) per
+  call.  Its matvec is plain PyTorch: the mode launches no kernel of the
+  package.
 
 Steps: build the CUDA kernels from ``ccqppy_tpu_torch/csrc``; hold each
 kernel's entry points against their plain PyTorch versions on the card
 (the GEMV also on A and x at storage offsets of 1-3 elements, bitwise);
-time the GEMV against ``einsum`` in interleaved pairs at five shapes
-("gemv pairs"); run the modes and the rr-PCG check at full width,
-audit every lane's true residual with the plain f64 GEMV of the dense
-stack, and check that the kernels carried each mode (launch counts are
-zeroed just before a mode and read just after it; ``gemv.LAUNCHES_BF16``
-counts the bf16 launches among ``gemv.LAUNCHES``).  Any failed check
+time the GEMV against ``einsum`` in interleaved pairs at seven shapes
+(in f64 also against ``torch.bmm``; "gemv pairs"); run the modes and the rr-PCG check at full width,
+audit every lane's true residual in f64 independently of the kernels (the
+plain GEMV of the dense stack; for (k) the plain f64 block-sparse matvec),
+and check that the kernels carried each mode (launch counts are zeroed
+just before a mode and read just after it; ``gemv.LAUNCHES_BF16`` and
+``gemv.LAUNCHES_F64`` count the bf16 and f64 launches among
+``gemv.LAUNCHES``).  Any failed check
 raises, so the exit code is non-zero.  The last line of standard output is
 one JSON object naming the device.
 
@@ -81,13 +103,14 @@ from ccqppy_tpu_torch.models.mprgp import MPRGPBBConfig
 from ccqppy_tpu_torch.models.pcg import PCGConfig
 from ccqppy_tpu_torch.models.spg import SPGConfig
 from ccqppy_tpu_torch.ops import gemv, kernels, symv
-from ccqppy_tpu_torch.ops.linop import (CastDense, MixedPrecDense, SpectralDense,
+from ccqppy_tpu_torch.ops.linop import (BlockSparseOperator, CastDense, DenseOperator,
+                                        MixedPrecDense, SpectralDense,
                                         SymmetricPackedDense, estimate_spectral_bounds)
 from ccqppy_tpu_torch.ops.projections import blockwise, box, lorentz_cone
 from ccqppy_tpu_torch.parallel import (prepare_dense_batch, solve_batched,
                                        solve_batched_fused_compact, solve_batched_mixed)
 from ccqppy_tpu_torch.utils.benchmark import dense_sweep_bytes, timed_run
-from ccqppy_tpu_torch.utils.random_qp import random_qp_batch
+from ccqppy_tpu_torch.utils.random_qp import block_tridiag_qp, random_qp_batch
 from ccqppy_tpu_torch.utils.rng import split_keys
 
 N = 1000
@@ -137,26 +160,46 @@ BOUND_LANES = 16   # lanes whose spectral bounds are checked
 BOUND_TOL = 1e-4   # f32 kernel estimate against the plain f64 estimate, relative
 SPECTRUM_TOL = 0.03  # |L / lambda_max - 1| and |mu / lambda_min - 1|
 
+# (j): benchmarks/benchmark_f64_wishart1k.py.
+B_F64 = 64
+TOL_F64, BUDGET_F64 = 1e-5, 20_000   # the benchmark's 1e-10 row: tools/f64_deep.py
+REFRESH_F64, SEGMENT_DROP_F64 = 128, 0.25
+# Least sweeps of one call, for the timing guard: the benchmark's 100 f32
+# sweeps a lane for the rung; 20 f64 sweeps for plain PCG.
+SWEEPS_RUNG, SWEEPS_F64_PLAIN = 100, 20
+# (k): benchmarks/benchmark_huge_qp.py.
+N_HUGE = 1_000_000
+TOL_HUGE, BUDGET_HUGE = 1e-9, 10_000
+NOISE_HUGE = 1e-4
+SWEEPS_HUGE = 20   # the benchmark's traffic floor: 20 sweeps of the blocks
+SEED_HUGE = 0      # the benchmark's default_rng seed
+
 REPS = 3           # timed reps per mode
 KERNEL_REPS = 25   # timed launches per kernel measurement
 
 # The card's peaks for a kernel's bound: the larger of bytes over the memory
-# rate and FLOPs over the fp32 rate outside the tensor cores (every kernel
-# here does fp32 FMA).  NVIDIA's H100 SXM data sheet.
+# rate and FLOPs over the rate outside the tensor cores for the kernel's
+# type (every kernel here does fp32 FMA, the GEMV's f64 instance f64 FMA).
+# NVIDIA's H100 SXM data sheet: 3.35 TB/s, 67 TFLOP/s fp32, 33.5 TFLOP/s
+# fp64 (not the 67 of the fp64 tensor cores).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 33.5e12
 
 GEMV_F32_TOL = 1e-5    # max|y - y_ref| / max|y_ref| against the f64 plain version
 GEMV_BF16_TOL = 2e-2   # bf16 A against the f64 GEMV of the f32 A (quantization)
 GEMV_BF16_PLAIN_TOL = 1e-5  # bf16 kernel against the plain bf16 version
+GEMV_F64_TOL = 1e-13   # f64 kernel against the plain f64 version (the sums' order)
 # (A, x) storage offsets in elements of the GEMV's bitwise check.
 GEMV_OFFSETS = ((1, 0), (2, 3), (3, 1), (0, 2))
 PAIR_ROUNDS = 10       # interleaved rounds of kernel, then plain version
 # (B, n, dtype) of the pairs: the iterative phase 1, the cone runs, the two
-# phase-2 straggler buckets (PERF.md section 5), and bf16 A.
+# phase-2 straggler buckets (PERF.md section 5), bf16 A, and f64 at the
+# rung's shape and at 1024 lanes.
 PAIR_SHAPES = ((B_ITER, N, torch.float32), (B_CONE, N_CONE, torch.float32),
                (120, N, torch.float32), (41, N_CONE, torch.float32),
-               (B_ITER, N, torch.bfloat16))
+               (B_ITER, N, torch.bfloat16), (B_F64, N, torch.float64),
+               (1024, N, torch.float64))
 SYMV_TOL = 1e-5        # max rel err against the f64 plain version (the JAX bound)
 # (B, n, tile) of the symv checks; the last is the packed mode's shape.
 SYMV_SHAPES = ((3, 512, 128), (3, 512, 256), (2, 1024, 512), (2048, 1024, 256))
@@ -169,7 +212,7 @@ def require(ok, msg):
 
 def zero_counts():
     """Set every kernel's launch count to 0, just before a mode runs."""
-    gemv.LAUNCHES = gemv.LAUNCHES_BF16 = 0
+    gemv.LAUNCHES = gemv.LAUNCHES_BF16 = gemv.LAUNCHES_F64 = 0
     symv.LAUNCHES.update(dict.fromkeys(symv.LAUNCHES, 0))
 
 
@@ -259,6 +302,27 @@ def run_box_apgd(As, b, diag, proj, cfg):
     return solve_batched("apgd", As, b, x0=jacobi_x0(diag, b), proj=proj, config=cfg)
 
 
+def run_rung(As, As32, b, diag, proj, cfg):
+    """One call of (j): rr-PCG on the f64-exact rung from the Jacobi start."""
+    return pcg.solve(MixedPrecDense(As, As32), b, x0=jacobi_x0(diag, b), proj=proj, config=cfg)
+
+
+def run_f64_plain(As, b, diag, proj, cfg):
+    """Beside (j): plain PCG on the f64 stack from the same start."""
+    return pcg.solve(DenseOperator(As), b, x0=jacobi_x0(diag, b), proj=proj, config=cfg)
+
+
+def run_huge(op, b, proj, cfg):
+    """One call of (k): PCG on the block-sparse QP from the default start,
+    as the benchmark calls it."""
+    return pcg.solve(op, b, proj=proj, config=cfg)
+
+
+def f32_launches():
+    """The f32 GEMV launches among ``gemv.LAUNCHES``."""
+    return gemv.LAUNCHES - gemv.LAUNCHES_F64 - gemv.LAUNCHES_BF16
+
+
 def readme_qp(dev):
     """The README's quick start at B=1: a 3x3 QP whose optimum [1, 0, 1]
     lies inside the box [-2, 2] x [-2, 2] x [-4, 5]."""
@@ -296,6 +360,14 @@ def audit_residual(As, b, x, proj64=None):
     return pg_residual(proj64, x.double(), g, 1e-6)
 
 
+def audit_blocksparse(op, b, x):
+    """True Eq. 25 residual of every lane in f64 on the box [-1, 1], through
+    the plain f64 matvec of an f64 copy of the block-sparse operator."""
+    op64 = BlockSparseOperator(op.blocks.double(), op.cols)
+    proj64 = box(-torch.ones(op.n), torch.ones(op.n), dtype=torch.float64, device=x.device)
+    return pg_residual(proj64, x.double(), op64.matvec(x.double()) + b.double(), 1e-6)
+
+
 def time_ms(fn, reps=KERNEL_REPS, warmup=3):
     """Median device time of ``fn`` in ms, by CUDA events."""
     for _ in range(warmup):
@@ -313,18 +385,21 @@ def time_ms(fn, reps=KERNEL_REPS, warmup=3):
     return statistics.median(times)
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
     """(bound_ms, bound_by): the least time the card could take to move
-    ``nbytes`` and do ``flops`` fp32 operations, and which of the two sets
-    it."""
+    ``nbytes`` and do ``flops`` operations at ``peak_flops``, and which of
+    the two sets it."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def gemv_bound(A, x):
-    """A and x read once, y written once; 2 FLOPs per element of A."""
-    return bound(A.numel() * A.element_size() + 2 * x.numel() * 4, 2 * A.numel())
+    """A and x read once, y (x's dtype) written once; 2 FLOPs per element
+    of A, at the f64 rate for an f64 A."""
+    peak = PEAK_F64_FLOPS if A.dtype == torch.float64 else PEAK_F32_FLOPS
+    return bound(A.numel() * A.element_size() + 2 * x.numel() * x.element_size(),
+                 2 * A.numel(), peak)
 
 
 def rel_err(y, ref):
@@ -432,20 +507,58 @@ def check_kernels(gen, dev):
                      "library_ms": library_bf16}}
 
 
+def check_kernel_f64(gen, dev):
+    """The GEMV's f64 instance against the plain f64 version on the card
+    (rel err <= GEMV_F64_TOL, two launches bitwise equal, bitwise at the
+    storage offsets GEMV_OFFSETS with NaN around A and x); returns its
+    measurements at the rung's shape (B_F64, N)."""
+    before = gemv.LAUNCHES_F64
+    for B, n in ((3, 999), (3, 37), (B_F64, N)):
+        A = torch.randn((B, n, n), generator=gen, device=dev, dtype=torch.float64)
+        x = torch.randn((B, n), generator=gen, device=dev, dtype=torch.float64)
+        y = gemv.batched_gemv(A, x)
+        require(y.dtype == torch.float64, f"f64 gemv returned {y.dtype}")
+        require(torch.equal(bits(gemv.batched_gemv(A, x)), bits(y)),
+                f"f64 gemv (B={B}, n={n}): two launches differ")
+        ref = gemv.batched_gemv_reference(A, x)
+        err = rel_err(y, ref)
+        print(f"gemv f64 B={B} n={n}: rel err vs plain f64 {err:.3e}")
+        require(err <= GEMV_F64_TOL, f"f64 gemv (B={B}, n={n}) rel err {err}")
+        if n != 37:
+            check_offsets(f"gemv f64 B={B} n={n}", A, x, y)
+    require(gemv.LAUNCHES_F64 > before, "the f64 checks launched no f64 GEMV")
+    ms = time_ms(lambda: gemv.batched_gemv(A, x))
+    plain_ms = time_ms(lambda: gemv.batched_gemv_reference(A, x))
+    library_ms = time_ms(lambda: torch.bmm(A, x.unsqueeze(-1)))
+    bound_ms, bound_by = gemv_bound(A, x)
+    nbytes = A.numel() * 8
+    print(f"gemv f64 (B={B}, n={n}): kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), plain "
+          f"{plain_ms:.4f} ms, torch.bmm {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
+          f"({bound_by})")
+    return {"B": B, "n": n, "max_abs_err": float((y - ref).abs().max()), "max_rel_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 def gemv_pairs(gen, dev):
     """The GEMV kernel against its plain version (``einsum``; for bf16 A the
     upcast and ``einsum``) at PAIR_SHAPES: PAIR_ROUNDS interleaved rounds,
-    each the kernel then the plain version, each ``time_ms``.  Returns one
-    record per shape: the medians over the rounds, GB/s of A, and the
-    min / median / max of the per-round ratio kernel / plain."""
+    each the kernel then the plain version (for f64 then ``torch.bmm``,
+    cuBLAS, too), each ``time_ms``.  Returns one record per shape: the
+    medians over the rounds, GB/s of A, and the min / median / max of the
+    per-round ratio kernel / plain (and kernel / ``torch.bmm``)."""
     pairs = []
     for B, n, dtype in PAIR_SHAPES:
         A = torch.randn((B, n, n), generator=gen, device=dev).to(dtype)
         x = torch.randn((B, n), generator=gen, device=dev)
-        kern, plain = [], []
+        if dtype == torch.float64:
+            x = x.double()
+        kern, plain, lib = [], [], []
         for _ in range(PAIR_ROUNDS):
             kern.append(time_ms(lambda: gemv.batched_gemv(A, x)))
             plain.append(time_ms(lambda: gemv.batched_gemv_reference(A, x)))
+            if dtype == torch.float64:
+                lib.append(time_ms(lambda: torch.bmm(A, x.unsqueeze(-1))))
         ratios = sorted(k / p for k, p in zip(kern, plain))
         nbytes = A.numel() * A.element_size()
         ms, plain_ms = statistics.median(kern), statistics.median(plain)
@@ -454,10 +567,21 @@ def gemv_pairs(gen, dev):
                "gbps": nbytes / ms / 1e6, "plain_gbps": nbytes / plain_ms / 1e6,
                "ratio_min": ratios[0], "ratio_median": statistics.median(ratios),
                "ratio_max": ratios[-1]}
-        print(f"gemv pairs {rec['dtype']} (B={B}, n={n}), {PAIR_ROUNDS} rounds: kernel "
-              f"{ms:.4f} ms ({rec['gbps']:.1f} GB/s), plain {plain_ms:.4f} ms "
-              f"({rec['plain_gbps']:.1f} GB/s); kernel / plain min {ratios[0]:.4f}, "
-              f"median {rec['ratio_median']:.4f}, max {ratios[-1]:.4f}")
+        line = (f"gemv pairs {rec['dtype']} (B={B}, n={n}), {PAIR_ROUNDS} rounds: kernel "
+                f"{ms:.4f} ms ({rec['gbps']:.1f} GB/s), plain {plain_ms:.4f} ms "
+                f"({rec['plain_gbps']:.1f} GB/s); kernel / plain min {ratios[0]:.4f}, "
+                f"median {rec['ratio_median']:.4f}, max {ratios[-1]:.4f}")
+        if lib:
+            lratios = sorted(k / q for k, q in zip(kern, lib))
+            rec.update(library_ms=statistics.median(lib),
+                       library_gbps=nbytes / statistics.median(lib) / 1e6,
+                       library_ratio_min=lratios[0],
+                       library_ratio_median=statistics.median(lratios),
+                       library_ratio_max=lratios[-1])
+            line += (f"; torch.bmm {rec['library_ms']:.4f} ms ({rec['library_gbps']:.1f} GB/s), "
+                     f"kernel / torch.bmm min {lratios[0]:.4f}, median "
+                     f"{rec['library_ratio_median']:.4f}, max {lratios[-1]:.4f}")
+        print(line)
         pairs.append(rec)
         del A, x
         torch.cuda.empty_cache()
@@ -680,7 +804,9 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(SEED)
     measured = check_kernels(gen, dev)
     torch.cuda.empty_cache()
-    # A generator of its own, so the modes' ensembles stay those of ``gen``.
+    # Generators of their own, so the modes' ensembles stay those of ``gen``.
+    measured["f64"] = check_kernel_f64(torch.Generator(device=dev).manual_seed(SEED + 3), dev)
+    torch.cuda.empty_cache()
     measured["pairs"] = gemv_pairs(torch.Generator(device=dev).manual_seed(SEED + 1), dev)
     measured_symv = check_symv(gen, dev)
     torch.cuda.empty_cache()
@@ -940,6 +1066,92 @@ def main():
           f"GEMV launches {gemv.LAUNCHES}")
     gemv_launches += gemv.LAUNCHES
 
+    # ---- (j) the f64-exact rung, and plain f64 PCG beside it ---------------
+    gen64 = torch.Generator(device=dev).manual_seed(SEED + 2)
+    As, bs, _ = random_qp_batch(gen64, B_F64, N, torch.float64, diag_boost=0.0)
+    As32 = As.float()
+    diag = As.diagonal(dim1=-2, dim2=-1)
+    proj64 = box(-torch.ones(N), torch.ones(N), dtype=torch.float64, device=dev)
+    cfg_rung = PCGConfig(tol=TOL_F64, max_matvecs=BUDGET_F64, refresh_every=REFRESH_F64,
+                         segment_drop=SEGMENT_DROP_F64)
+    rhs_state = gen64.get_state()   # plain PCG draws the same right-hand sides
+    zero_counts()
+    run_mode("f64 rung", lambda b: run_rung(As, As32, b, diag, proj64, cfg_rung), As, bs, None,
+             gen64, dense_sweep_bytes(B_F64, N, 1), SWEEPS_RUNG, lambda: gemv.LAUNCHES,
+             tol=TOL_F64, proj64=proj64)
+    print(f"f64 rung: GEMV launches over the warm-up and timed calls: {f32_launches()} f32 "
+          f"(cheap sweeps), {gemv.LAUNCHES_F64} f64 (refreshes), {gemv.LAUNCHES_BF16} bf16")
+    require(f32_launches() > 0 and gemv.LAUNCHES_F64 > 0,
+            f"the f64 rung launched {f32_launches()} f32 and {gemv.LAUNCHES_F64} f64 GEMVs")
+    require(gemv.LAUNCHES_BF16 == 0, "the f64 rung launched the bf16 GEMV")
+    require(not any(symv.LAUNCHES.values()), "the f64 rung launched a symv kernel")
+    gemv_launches += gemv.LAUNCHES
+    gemv_launches_f64 = gemv.LAUNCHES_F64
+
+    gen64.set_state(rhs_state)
+    cfg_plain64 = PCGConfig(tol=TOL_F64, max_matvecs=BUDGET_F64)
+    zero_counts()
+    run_mode("f64 plain pcg", lambda b: run_f64_plain(As, b, diag, proj64, cfg_plain64), As, bs,
+             None, gen64, dense_sweep_bytes(B_F64, N, 1, 8), SWEEPS_F64_PLAIN,
+             lambda: gemv.LAUNCHES, tol=TOL_F64, proj64=proj64)
+    require(gemv.LAUNCHES_F64 == gemv.LAUNCHES > 0,
+            f"plain f64 PCG launched {gemv.LAUNCHES} GEMVs, {gemv.LAUNCHES_F64} of them f64")
+    require(not any(symv.LAUNCHES.values()), "plain f64 PCG launched a symv kernel")
+    gemv_launches += gemv.LAUNCHES
+    gemv_launches_f64 += gemv.LAUNCHES_F64
+
+    del As, As32, bs, diag
+    torch.cuda.empty_cache()
+
+    # ---- (k) the huge block-sparse QP --------------------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    op, b_huge, x_exact = block_tridiag_qp(N_HUGE, SEED_HUGE, device=dev)
+    torch.cuda.synchronize()
+    op_bytes = op.blocks.numel() * op.blocks.element_size()
+    print(f"huge qp: prep block_tridiag_qp (n={N_HUGE}) {time.perf_counter() - t0:.2f} s, "
+          f"operator {op_bytes / 1e6:.1f} MB")
+    proj_huge = box(-torch.ones(N_HUGE), torch.ones(N_HUGE), device=dev)
+    cfg_huge = PCGConfig(tol=TOL_HUGE, max_matvecs=BUDGET_HUGE)
+    zero_counts()
+    r = run_huge(op, b_huge, proj_huge, cfg_huge)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(r.x).all()) and r.x.shape == (1, N_HUGE),
+            "huge qp: non-finite or misshapen solution")
+    require(bool(r.converged.all()), "huge qp: the warm-up call did not converge")
+    res = float(audit_blocksparse(op, b_huge, r.x).max())
+    err = float((r.x - x_exact).norm() / x_exact.norm())
+    print(f"huge qp: warm-up call (unperturbed b): matvecs {int(r.matvecs[0])}, audited residual "
+          f"{res:.3e}, rel err vs x_exact {err:.3e}")
+    require(res <= TOL_HUGE * 1.05, f"huge qp: audited residual {res} above tol")
+    gen_huge = torch.Generator(device=dev).manual_seed(SEED + 4)
+    last = {}
+
+    def make_huge_args(rep):
+        last["b"] = b_huge + NOISE_HUGE * torch.randn(b_huge.shape, generator=gen_huge,
+                                                      device=dev)
+        return (last["b"],)
+
+    out = timed_run(lambda b: run_huge(op, b, proj_huge, cfg_huge), reps=REPS,
+                    make_args=make_huge_args, warmup=False,
+                    implied_bytes=SWEEPS_HUGE * op_bytes,
+                    check=lambda r_: require(bool(r_.converged.all()),
+                                             "huge qp: a timed call did not converge"))
+    r = out.result
+    res = float(audit_blocksparse(op, last["b"], r.x).max())
+    require(res <= TOL_HUGE * 1.05, f"huge qp: audited residual {res} above tol")
+    its = int(r.iterations[0])
+    err = float((r.x - x_exact).norm() / x_exact.norm())
+    print(f"huge qp (n={N_HUGE}, pcg, tol {TOL_HUGE}): converged, matvecs {int(r.matvecs[0])}, "
+          f"iterations {its}, wall {out.wall_s:.4f} s (min of {REPS} "
+          f"{[round(w, 5) for w in out.walls]}), iterations/s {its / out.wall_s:.1f}, operator "
+          f"{op_bytes / 1e6:.1f} MB, rel err vs x_exact {err:.3e} (b perturbed), audited "
+          f"residual {res:.3e}")
+    require(gemv.LAUNCHES == 0 and not any(symv.LAUNCHES.values()),
+            f"huge qp launched {gemv.LAUNCHES} GEMV and {dict(symv.LAUNCHES)} symv kernels")
+    del op, b_huge, x_exact, r, out
+    torch.cuda.empty_cache()
+
     # ``launches`` is each entry's count over the main path's modes (0 for
     # the two symv entries no mode runs); ``kernel_phase_launches`` counts
     # the symv checks above, which are not part of the main path.
@@ -949,7 +1161,8 @@ def main():
         {"name": "batched_gemv", "route": "cuda",
          "source": "ccqppy_tpu_torch/csrc/batched_gemv.cu",
          "replaces": "ccqppy_tpu/ops/pallas_kernels.py:65",
-         "launches": gemv_launches, "launches_bf16": gemv_launches_bf16, **measured,
+         "launches": gemv_launches, "launches_bf16": gemv_launches_bf16,
+         "launches_f64": gemv_launches_f64, **measured,
          "n999": gemv_999},
         *({"name": name, "route": "cuda", "source": symv_src,
            "replaces": f"ccqppy_tpu/ops/pallas_kernels.py:{line}",

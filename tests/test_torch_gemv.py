@@ -147,6 +147,18 @@ def test_kernel_operand_checks_pass(offset, dtype):
     gemv._check_kernel_operands(A, _offset_view(torch.zeros((2, 8)), offset))
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+def test_kernel_operand_checks_pass_f64(offset):
+    """Contiguous f64 A and f64 x (the f64 instance) pass at any storage
+    offset; the two f64-x pairs without an instance name the gap."""
+    A = _offset_view(torch.zeros((2, 8, 8), dtype=torch.float64), offset)
+    x = _offset_view(torch.zeros((2, 8), dtype=torch.float64), offset)
+    gemv._check_kernel_operands(A, x)
+    for low in (torch.float32, torch.bfloat16):
+        with pytest.raises(TypeError, match="no instance"):
+            gemv._check_kernel_operands(A.to(low), x)
+
+
 KERNEL_TOL = 1e-5   # max|y - y_ref| / max|y_ref| against the f64 plain version
 DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 
@@ -232,12 +244,17 @@ def test_kernel_nan_stays_in_its_row_on_cuda(cuda, offset, dtype):
 
 @pytest.mark.cuda
 def test_kernel_rejects_f64_and_strided_on_cuda(cuda):
+    """f64 A and x are the f64 instance's pair; f64 with f32 or bf16 on the
+    other side has no instance and raises, as a strided operand does."""
     A = torch.zeros((2, 8, 8), dtype=torch.float64, device=cuda)
     x = torch.zeros((2, 8), dtype=torch.float64, device=cuda)
-    with pytest.raises(TypeError):
-        gemv.batched_gemv(A, x)
+    for a, v in ((A, x.float()), (A.float(), x), (A.to(torch.bfloat16), x)):
+        with pytest.raises(TypeError):
+            gemv.batched_gemv(a, v)
     with pytest.raises(ValueError):
         gemv.batched_gemv(A.float().mT, x.float())
+    with pytest.raises(ValueError):
+        gemv.batched_gemv(A.mT, x)
 
 
 def test_dense_operator_matches_jax_per_lane():

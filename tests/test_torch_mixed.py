@@ -175,12 +175,22 @@ def test_f32_stack_with_f64_x_is_f64():
     assert DenseOperator(torch.from_numpy(A)).matvec(torch.from_numpy(x)).dtype == torch.float64
 
 
-def test_mixed_prec_dense_f64_exact_rung_raises():
-    A = torch.zeros((2, 4, 4), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        MixedPrecDense(A, A.float())
-    with pytest.raises(TypeError):
-        MixedPrecDense(torch.zeros((2, 4, 4)), torch.zeros((2, 4, 4)))
+@pytest.mark.parametrize("hi,lo,ok", [
+    (torch.float32, torch.bfloat16, True),    # the bf16 -> f32 ladder
+    (torch.float64, torch.float32, True),     # the f64-exact rung
+    (torch.float32, torch.float32, False),
+    (torch.float64, torch.bfloat16, False),
+], ids=["f32-bf16", "f64-f32", "f32-f32", "f64-bf16"])
+def test_mixed_prec_dense_dtype_pairs(hi, lo, ok):
+    """The two pairs the JAX package runs build; any other raises."""
+    A = torch.eye(4, dtype=hi).expand(2, 4, 4).contiguous()
+    if ok:
+        op = MixedPrecDense(A, A.to(lo))
+        assert (op.A.dtype, op.A_low.dtype) == (hi, lo)
+        assert op.matvec(torch.ones((2, 4), dtype=hi)).dtype == hi
+    else:
+        with pytest.raises(TypeError):
+            MixedPrecDense(A, A.to(lo))
 
 
 @pytest.mark.parametrize("kind", ["CastDense", "MixedPrecDense", "FastDense"])
