@@ -41,7 +41,11 @@
 //     f32 a stage is 68 KB and 3 fit, one block per SM, so up to 128 KB of A
 //     is in flight per SM where the card needs ~20 KB (3.35 TB/s times
 //     ~0.8 us over 132 SMs).  In f64 a tile is 512 columns and a stage at
-//     n = 1000 is again 68 KB.
+//     n = 1000 is again 68 KB.  A geometry of its own for f64 (whole rows of
+//     8 KB a tile, 8 rows a unit, 4 or 8 consumer warps: one contiguous 64 KB
+//     span a stage) streamed no faster on an H100: within 0.5% of this one
+//     at (B, n) = (64, 1000) and (1024, 1000), device-only
+//     (tools/gemv_f64_candidates.py).
 //   * The enclosing span may reach past either end of A or x: each copy is
 //     clipped to the tensor's 16-byte aligned interior, and the consumers
 //     read the at most 16 / sizeof(T) - 1 elements at each end of the tensor
@@ -66,7 +70,9 @@
 // product of two bf16 values is exact in fp32, and accumulation is fp32.
 //
 // Measured on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit, medians
-// of 8 interleaved rounds of 25 launches, this code against `einsum`:
+// of 8 interleaved rounds of 25 launches, this code against `einsum`, by a
+// timer that held the host's enqueue too (PERF.md has the device-only
+// table):
 // f32 (B, n) = (2048, 1000) 2.7262 ms (3004.9 GB/s) against 2.8358 ms;
 // (1024, 999) 1.3562 ms (3014.1 GB/s) against 1.3716 ms; (120, 1000)
 // 0.1798 against 0.1988 ms; (41, 999) 0.0755 against 0.0815 ms; bf16 A

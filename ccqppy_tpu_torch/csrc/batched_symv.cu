@@ -20,27 +20,40 @@
 //
 // What the design does about it, and about the card's blocks running in
 // parallel in no order (the TPU kernel relied on a sequential grid):
-//   * pass 1, one block per (b, t): a warp owns rows of the tile and
-//     streams them straight from device memory with 16-byte loads that
-//     bypass L1 (a 512x512 f32 tile is 1 MB, more than shared memory holds,
-//     so nothing of A is staged), UNROLL rows in flight per warp.  The row
-//     dot T[r,:].x_j is reduced by shuffles; each lane keeps the column
-//     accumulators T[r,c] x_i[r] of its columns in registers, and the warps
-//     sum those through shared memory, in warp order, at the tile's end;
-//   * pass 1 writes the tile's row partial and (i < j) column partial to a
-//     scratch buffer (B, T, 2, tile) that the caller allocates;
-//   * pass 2, one block per (b, output segment s), sums the partials of
-//     segment s in tile order: the column partials of tiles (i, s), i < s,
-//     then the row partials of tiles (s, j), j >= s.
+//   * pass 1, one block per (b, t, slice): the tile's rows are cut into S
+//     slices of tile / S consecutive rows.  A warp owns tile / (8 S)
+//     consecutive rows of its block's slice and streams them straight from device memory with
+//     16-byte loads that bypass L1 (a 512x512 f32 tile is 1 MB, more than
+//     shared memory holds, so nothing of A is staged), UNROLL rows in flight
+//     per warp.  The row dot T[r,:].x_j is reduced by shuffles; each lane
+//     keeps the column accumulators T[r,c] x_i[r] of its columns in
+//     registers, and the warps sum those through shared memory, in warp
+//     order, at the slice's end;
+//   * pass 1 writes the row partials of its slice's rows (disjoint between
+//     slices) and, for i < j, the slice's column partial to a scratch
+//     buffer (B, T, 1 + S, tile) that the caller allocates: slot 0 the row
+//     partials, slot 1 + s slice s's column partial;
+//   * pass 2, one block per (b, output segment s), a thread per row, sums
+//     the partials of segment s in tile order: for each tile (i, s), i < s,
+//     its S column partials in slice order, then the row partials of the
+//     tiles (s, j), j >= s.
+// S is chosen by the caller (ops/symv.py `row_slices`): 1 where B * T
+// blocks already fill the card, as at B = 2048; below that enough slices
+// for a block an SM, but none shorter than 64 rows (at B = 1, n = 1024,
+// tile 256: 10 blocks at S = 1 on 132 SMs, 40 at S = 4).  A slice's column
+// partial and its share of pass 2 cost more than its block gains below
+// that.  S = 1 is one slice of the whole tile: the same rows a warp, the
+// same sums in the same order as a kernel without slices.
 // No float atomics and no state across blocks: every sum is taken in a
 // fixed order, so the result is bitwise the same run to run.  Diagonal
-// tiles are read whole and contribute once (their row partial).  Plain
+// tiles are read whole and contribute once (their row partials).  Plain
 // fp32 FMA, no tensor cores, as in batched_gemv.cu.
 //
-// Tiles of 128, 256 and 512; n % tile == 0.  Offsets are 64-bit:
-// B * T * tile^2 passes 2^31 at B = 4096, tile = 128.  A and x must be
-// 16-byte aligned.  The kernel allocates nothing; it launches on the
-// caller's stream and returns the first CUDA error of its launches.
+// Tiles of 128, 256 and 512; n % tile == 0; S a power of two with slices
+// of a multiple of WARPS * UNROLL = 32 rows.  Offsets are 64-bit: B * T * tile^2 passes 2^31 at B = 4096,
+// tile = 128.  A and x must be 16-byte aligned.  The kernel allocates
+// nothing; it launches on the caller's stream and returns the first CUDA
+// error of its launches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,7 +63,6 @@ namespace {
 constexpr int WARPS = 8;                 // warps per pass-1 block
 constexpr int THREADS = WARPS * 32;
 constexpr int UNROLL = 4;                // rows of A in flight per warp
-constexpr int SUM_THREADS = 128;         // pass-2 block
 constexpr int64_t MAX_GRID_X = 2147483647;
 
 __device__ __forceinline__ float4 load_streaming(const float4* p) {
@@ -75,17 +87,17 @@ __device__ __forceinline__ void tile_coords(int64_t t, int64_t nt, int64_t& i,
 template <int TILE, bool PACKED>
 __global__ void __launch_bounds__(THREADS)
 symv_tiles_kernel(const float* __restrict__ A, const float* __restrict__ x,
-                  float* __restrict__ part, int64_t T, int64_t n) {
+                  float* __restrict__ part, int64_t T, int64_t n, int slices) {
   constexpr int V = TILE / 128;          // float4 per lane per row
-  constexpr int ROWS = TILE / WARPS;     // rows per warp
-  static_assert(ROWS % UNROLL == 0, "rows per warp must divide by UNROLL");
   __shared__ __align__(16) float xi_s[TILE];
   __shared__ __align__(16) float col_s[WARPS][TILE];
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int64_t b = (int64_t)blockIdx.x / T;
-  const int64_t t = (int64_t)blockIdx.x % T;
+  const int slice = (int)((int64_t)blockIdx.x % slices);
+  const int64_t bt = (int64_t)blockIdx.x / slices;
+  const int64_t b = bt / T;
+  const int64_t t = bt % T;
   int64_t i, j;
   tile_coords(t, n / TILE, i, j);
   const bool diag = i == j;
@@ -112,10 +124,13 @@ symv_tiles_kernel(const float* __restrict__ A, const float* __restrict__ x,
   }
   __syncthreads();
 
-  float* rowpart = part + (b * T + t) * 2 * TILE;
-  float* colpart = rowpart + TILE;
-  const int r_begin = warp * ROWS;
-  for (int r0 = r_begin; r0 < r_begin + ROWS; r0 += UNROLL) {
+  float* rowpart = part + bt * (1 + slices) * TILE;
+  float* colpart = rowpart + (1 + slice) * TILE;
+  // The slice's rows, WARPS runs of consecutive rows, a multiple of UNROLL
+  // each (at S = 1, TILE / WARPS rows a warp).
+  const int rows = TILE / slices / WARPS;
+  const int r_begin = (slice * WARPS + warp) * rows;
+  for (int r0 = r_begin; r0 < r_begin + rows; r0 += UNROLL) {
     float4 a[UNROLL][V];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
@@ -164,61 +179,79 @@ symv_tiles_kernel(const float* __restrict__ A, const float* __restrict__ x,
   }
 }
 
-__global__ void __launch_bounds__(SUM_THREADS)
+// One block per (b, output segment s) of TILE threads, one a row.
+template <int TILE>
+__global__ void __launch_bounds__(TILE)
 symv_sum_kernel(const float* __restrict__ part, float* __restrict__ y, int64_t T,
-                int64_t n, int64_t tile) {
-  const int64_t nt = n / tile;
+                int64_t n, int slices) {
+  const int64_t nt = n / TILE;
   const int64_t b = (int64_t)blockIdx.x / nt;
   const int64_t s = (int64_t)blockIdx.x % nt;
-  const float* pb = part + b * T * 2 * tile;
-  for (int64_t r = threadIdx.x; r < tile; r += SUM_THREADS) {
-    float acc = 0.f;
-    int64_t row_start = 0;               // index of tile (i, i)
-    for (int64_t i = 0; i < s; ++i) {    // column partial of tile (i, s)
-      acc += pb[((row_start + s - i) * 2 + 1) * tile + r];
-      row_start += nt - i;
-    }
-    for (int64_t jj = s; jj < nt; ++jj)  // row partial of tile (s, jj)
-      acc += pb[(row_start + jj - s) * 2 * tile + r];
-    y[b * n + s * tile + r] = acc;
+  const int64_t stride = (int64_t)(1 + slices) * TILE;   // one tile's partials
+  const float* pb = part + b * T * stride + threadIdx.x;
+  float acc = 0.f;
+  int64_t row_start = 0;                 // index of tile (i, i)
+  for (int64_t i = 0; i < s; ++i) {      // column partials of tile (i, s)
+    const float* pc = pb + (row_start + s - i) * stride + TILE;
+    float c = pc[0];
+#pragma unroll 16
+    for (int sl = 1; sl < slices; ++sl) c += pc[sl * TILE];
+    acc += c;
+    row_start += nt - i;
   }
+  for (int64_t jj = s; jj < nt; ++jj)    // row partials of tile (s, jj)
+    acc += pb[(row_start + jj - s) * stride];
+  y[b * n + s * TILE + threadIdx.x] = acc;
+}
+
+template <int TILE, bool PACKED>
+int launch_tile(const float* A, const float* x, float* y, float* part, int64_t batch,
+                int64_t n, int64_t T, int slices, cudaStream_t stream) {
+  symv_tiles_kernel<TILE, PACKED>
+      <<<(unsigned)(batch * T * slices), THREADS, 0, stream>>>(A, x, part, T, n, slices);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  symv_sum_kernel<TILE><<<(unsigned)(batch * (n / TILE)), TILE, 0, stream>>>(
+      part, y, T, n, slices);
+  return (int)cudaGetLastError();
 }
 
 template <bool PACKED>
 int launch(const void* A, const void* x, void* y, void* part, int64_t batch,
-           int64_t n, int64_t tile, cudaStream_t stream) {
+           int64_t n, int64_t tile, int64_t slices, cudaStream_t stream) {
   if (batch <= 0 || n <= 0) return 0;
   if (tile <= 0 || n % tile != 0) return (int)cudaErrorInvalidValue;
+  if (slices < 1 || (slices & (slices - 1)) != 0 || tile % (slices * WARPS * UNROLL) != 0)
+    return (int)cudaErrorInvalidValue;
   const int64_t nt = n / tile;
   const int64_t T = nt * (nt + 1) / 2;
-  if (batch * T > MAX_GRID_X || batch * nt > MAX_GRID_X) return (int)cudaErrorInvalidValue;
+  if (batch * T * slices > MAX_GRID_X || batch * nt > MAX_GRID_X)
+    return (int)cudaErrorInvalidValue;
   const float* a = static_cast<const float*>(A);
   const float* xv = static_cast<const float*>(x);
+  float* yv = static_cast<float*>(y);
   float* p = static_cast<float*>(part);
-  const dim3 grid((unsigned)(batch * T));
+  const int S = (int)slices;
   switch (tile) {
-    case 128: symv_tiles_kernel<128, PACKED><<<grid, THREADS, 0, stream>>>(a, xv, p, T, n); break;
-    case 256: symv_tiles_kernel<256, PACKED><<<grid, THREADS, 0, stream>>>(a, xv, p, T, n); break;
-    case 512: symv_tiles_kernel<512, PACKED><<<grid, THREADS, 0, stream>>>(a, xv, p, T, n); break;
+    case 128: return launch_tile<128, PACKED>(a, xv, yv, p, batch, n, T, S, stream);
+    case 256: return launch_tile<256, PACKED>(a, xv, yv, p, batch, n, T, S, stream);
+    case 512: return launch_tile<512, PACKED>(a, xv, yv, p, batch, n, T, S, stream);
     default: return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  symv_sum_kernel<<<(unsigned)(batch * nt), SUM_THREADS, 0, stream>>>(
-      p, static_cast<float*>(y), T, n, tile);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int batched_symv_packed_f32(const void* Ap, const void* x, void* y,
                                        void* part, int64_t batch, int64_t n,
-                                       int64_t tile, void* stream) {
-  return launch<true>(Ap, x, y, part, batch, n, tile, static_cast<cudaStream_t>(stream));
+                                       int64_t tile, int64_t slices, void* stream) {
+  return launch<true>(Ap, x, y, part, batch, n, tile, slices,
+                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int batched_symv_full_f32(const void* Au, const void* x, void* y,
                                      void* part, int64_t batch, int64_t n,
-                                     int64_t tile, void* stream) {
-  return launch<false>(Au, x, y, part, batch, n, tile, static_cast<cudaStream_t>(stream));
+                                     int64_t tile, int64_t slices, void* stream) {
+  return launch<false>(Au, x, y, part, batch, n, tile, slices,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -30,8 +30,8 @@ SIGNATURES = {
     "batched_gemv_f32": (_P, _P, _P, _I64, _I64, _P),
     "batched_gemv_bf16": (_P, _P, _P, _I64, _I64, _P),
     "batched_gemv_f64": (_P, _P, _P, _I64, _I64, _P),
-    "batched_symv_packed_f32": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
-    "batched_symv_full_f32": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
+    "batched_symv_packed_f32": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
+    "batched_symv_full_f32": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
 }
 
 

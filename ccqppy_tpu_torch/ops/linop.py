@@ -290,7 +290,8 @@ class MixedPrecDense(LinearOperator):
 class SymmetricPackedDense(LinearOperator):
     """Symmetric operator stored as its upper tiles, batched: the matvec
     streams the T = nt(nt+1)/2 tiles once (the packed symv kernel on CUDA),
-    about half the bytes and half the memory of a dense stack.
+    about half the bytes and half the memory of a dense stack.  At B = 1
+    the matvec is ``symv.symv_packed``, the single-problem wrapper.
 
     Fields:
       Ap:    (B, T, tile, tile) upper tiles in ``symv.upper_tile_tables``
@@ -327,7 +328,12 @@ class SymmetricPackedDense(LinearOperator):
 
     def matvec(self, x):
         xp = F.pad(x, (0, self.npad - self.n)) if self.npad != self.n else x.contiguous()
-        y = symv.batched_symv_packed(self.Ap, xp, n=self.npad)
+        if self.Ap.shape[0] == 1:
+            # One problem: the single-problem kernel, as the JAX operator of
+            # one problem applies it.
+            y = symv.symv_packed(self.Ap[0], xp[0], n=self.npad)[None]
+        else:
+            y = symv.batched_symv_packed(self.Ap, xp, n=self.npad)
         return y[:, :self.n] if self.npad != self.n else y
 
     def inf_norm(self):

@@ -17,9 +17,13 @@ diagonal tiles are read whole, so their lower halves must mirror the upper.
 On a CUDA tensor each wrapper launches the hand-written Hopper kernel
 ``csrc/batched_symv.cu`` (f32 only, tiles of 128, 256 or 512) or raises;
 on a CPU tensor it computes its plain version in any floating dtype.
-``symv_packed`` is the packed kernel at B = 1.
+``symv_packed`` is the packed kernel at B = 1.  The kernel cuts each
+tile's rows into ``slices`` blocks; ``row_slices`` picks how many from the
+card's SM count, so that a single problem's few tiles still fill the card.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -31,6 +35,38 @@ LAUNCHES = {"batched_symv": 0, "batched_symv_packed": 0, "symv_packed": 0}
 
 #: Tile sizes the CUDA kernel is compiled for.
 KERNEL_TILES = (128, 256, 512)
+#: Rows of a slice are a multiple of this: the kernel's 8 warps, 4 rows in
+#: flight each.
+SLICE_ROWS_STEP = 32
+#: Fewest rows of a tile one pass-1 block takes when ``row_slices`` picks.
+#: Shorter slices cost more in column partials and pass-2 sums than their
+#: extra blocks gain: on an H100 at B = 1, n = 1024, tile 256 (10 tiles) 4
+#: slices of 64 rows took ~0.8x the time of one slice, 8 slices of 32 rows
+#: ~0.9x (tools/symv_slices.py).
+MIN_SLICE_ROWS = 64
+
+
+def row_slices(batch, T, tile, sm_count):
+    """Row slices S of each tile: the least power of two with
+    ``batch * T * S >= sm_count`` pass-1 blocks (one an SM), but at most
+    ``tile // MIN_SLICE_ROWS``.  S = 1 wherever ``batch * T`` blocks
+    already fill the card."""
+    S = 1
+    while batch * T * S < sm_count and 2 * S * MIN_SLICE_ROWS <= tile:
+        S *= 2
+    return S
+
+
+def scratch_shape(batch, T, slices, tile):
+    """The kernel's scratch between its passes: per (problem, tile) slot 0
+    holds the row partials, slot 1 + s slice s's column partial."""
+    return (batch, T, 1 + slices, tile)
+
+
+@functools.cache
+def sm_count(index):
+    """The number of SMs of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def upper_tile_tables(nt):
@@ -128,9 +164,16 @@ def _check_device(A, x):
         raise ValueError(f"symv runs on cuda or cpu, not {A.device}")
 
 
-def _launch(name, A, x, n, tile, packed):
+def _check_slices(slices, tile):
+    most = tile // SLICE_ROWS_STEP
+    if slices is not None and (slices < 1 or slices > most or slices & (slices - 1)):
+        raise ValueError(f"slices must be a power of two in [1, {most}] at tile {tile}, "
+                         f"not {slices}")
+
+
+def _launch(name, A, x, n, tile, packed, slices):
     """One launch of the kernel (both passes) on the current stream, counted
-    as wrapper ``name``'s."""
+    as wrapper ``name``'s; ``slices`` None takes ``row_slices``' choice."""
     check_kernel_inputs(A, x)
     if tile not in KERNEL_TILES:
         raise ValueError(f"the CUDA symv kernel takes tiles {KERNEL_TILES}, not {tile}")
@@ -139,33 +182,38 @@ def _launch(name, A, x, n, tile, packed):
     if B == 0:
         return y
     T = num_tiles(n // tile)
-    part = torch.empty((B, T, 2, tile), dtype=torch.float32, device=A.device)
+    if slices is None:
+        slices = row_slices(B, T, tile, sm_count(A.device.index))
+    part = torch.empty(scratch_shape(B, T, slices, tile), dtype=torch.float32, device=A.device)
     lib = kernels.load()
     fn = lib.batched_symv_packed_f32 if packed else lib.batched_symv_full_f32
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = fn(A.data_ptr(), x.data_ptr(), y.data_ptr(), part.data_ptr(),
-                 B, n, tile, stream)
+                 B, n, tile, slices, stream)
     if err != 0:
         raise RuntimeError(f"batched_symv kernel launch failed with CUDA error {err}")
     LAUNCHES[name] += 1
     return y
 
 
-def batched_symv(Au, x, tile=512):
+def batched_symv(Au, x, tile=512, slices=None):
     """y[b] = A[b] @ x[b] for symmetric A given as a full (B, n, n) stack
     whose strictly-lower off-diagonal tiles are ignored; x (B, n);
-    n % tile == 0.  Output in Au's dtype."""
+    n % tile == 0.  Output in Au's dtype.  ``slices``: the kernel's row
+    slices a tile (a power of two up to ``tile // SLICE_ROWS_STEP``; None:
+    ``row_slices``'s pick)."""
     if Au.dim() != 3 or Au.shape[1] != Au.shape[2] or x.shape != Au.shape[:2]:
         raise ValueError(f"batched_symv takes Au (B, n, n) and x (B, n), got "
                          f"{tuple(Au.shape)} and {tuple(x.shape)}")
     n = Au.shape[-1]
     if n % tile:
         raise ValueError(f"n = {n} is not a multiple of tile = {tile}")
+    _check_slices(slices, tile)
     _check_device(Au, x)
     if Au.device.type == "cpu":
         return batched_symv_reference(Au, x, tile)
-    return _launch("batched_symv", Au, x, n, tile, packed=False)
+    return _launch("batched_symv", Au, x, n, tile, False, slices)
 
 
 def _check_packed(Ap, x, n):
@@ -185,22 +233,23 @@ def _check_packed(Ap, x, n):
     return n
 
 
-def _symv_packed_batch(name, Ap, x, n):
+def _symv_packed_batch(name, Ap, x, n, slices):
     n = _check_packed(Ap, x, n)
+    _check_slices(slices, Ap.shape[-1])
     if Ap.device.type == "cpu":
         return batched_symv_packed_reference(Ap, x, n)
-    return _launch(name, Ap, x, n, Ap.shape[-1], packed=True)
+    return _launch(name, Ap, x, n, Ap.shape[-1], True, slices)
 
 
-def batched_symv_packed(Ap, x, n=None):
+def batched_symv_packed(Ap, x, n=None, slices=None):
     """``batched_symv`` on the packed layout: Ap (B, T, tile, tile) from
     ``pack_symmetric``, x (B, n) -> (B, n) in Ap's dtype."""
-    return _symv_packed_batch("batched_symv_packed", Ap, x, n)
+    return _symv_packed_batch("batched_symv_packed", Ap, x, n, slices)
 
 
-def symv_packed(Ap, x, n=None):
+def symv_packed(Ap, x, n=None, slices=None):
     """One problem on the packed layout: Ap (T, tile, tile), x (n,) -> (n,)."""
     if Ap.dim() != 3 or x.dim() != 1:
         raise ValueError(f"symv_packed takes Ap (T, tile, tile) and x (n,), got "
                          f"{tuple(Ap.shape)} and {tuple(x.shape)}")
-    return _symv_packed_batch("symv_packed", Ap[None], x[None], n)[0]
+    return _symv_packed_batch("symv_packed", Ap[None], x[None], n, slices)[0]

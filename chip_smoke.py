@@ -12,6 +12,12 @@ right-hand sides perturbed by 1e-3 N(0, 1) per call.  Three box modes:
 * packed (the same B=2048 ensemble): the same solve on
   ``SymmetricPackedDense.from_dense(As, tile=256)``, whose matvec streams
   only the upper tiles through the symv kernel;
+* (l) single request, packed: lane 0 of the same ensemble alone,
+  ``SymmetricPackedDense.from_dense(As[:1], tile=256)``, whose matvec at
+  B=1 is the single-problem wrapper ``symv_packed``: PCG from the Jacobi
+  start, uncompacted.  One QP answered alone, the latency case of a packed
+  ensemble's users; its wall is host-bound (~100 small kernels an
+  iteration around a few-microsecond symv), not a kernel measurement;
 * direct serving (B=1024): a one-time batched Cholesky inverse, then per
   call the projected inverse apply, a verification sweep and a compacted
   PCG polish (phase 1 at 3 matvecs, a 64-lane bucket).
@@ -71,11 +77,16 @@ configuration of a JAX benchmark unchanged:
   call.  Its matvec is plain PyTorch: the mode launches no kernel of the
   package.
 
-Steps: build the CUDA kernels from ``ccqppy_tpu_torch/csrc``; hold each
-kernel's entry points against their plain PyTorch versions on the card
-(the GEMV also on A and x at storage offsets of 1-3 elements, bitwise);
-time the GEMV against ``einsum`` in interleaved pairs at seven shapes
-(in f64 also against ``torch.bmm``; "gemv pairs"); run the modes and the rr-PCG check at full width,
+Steps: build the CUDA kernels from ``ccqppy_tpu_torch/csrc``; read the
+launch floor (the device time of an in-place add on a one-element
+tensor); hold each kernel's entry points against their plain PyTorch
+versions on the card (the GEMV also on A and x at storage offsets of 1-3
+elements, bitwise; the symv at the row slices ``symv.row_slices`` picks,
+and at one slice, bitwise where one slice is the pick); time the GEMV
+against ``einsum`` in interleaved pairs at seven shapes (in f64 also
+against ``torch.bmm``; "gemv pairs") and the single-problem symv at its
+row slices against one slice ("symv pairs"); run the modes and the rr-PCG
+check at full width,
 audit every lane's true residual in f64 independently of the kernels (the
 plain GEMV of the dense stack; for (k) the plain f64 block-sparse matvec),
 and check that the kernels carried each mode (launch counts are zeroed
@@ -84,6 +95,13 @@ just before a mode and read just after it; ``gemv.LAUNCHES_BF16`` and
 ``gemv.LAUNCHES``).  Any failed check
 raises, so the exit code is non-zero.  The last line of standard output is
 one JSON object naming the device.
+
+Every kernel and library time is device-only (``utils.benchmark.device_ms``:
+a spin on the stream holds the start event until the host has enqueued the
+call; a rep whose enqueue outlasted its spin is never kept but taken again
+behind a longer spin, and three such reps in a row raise).  For one shape of
+each kernel the earlier host-inclusive reading (``host_inclusive_ms``) is
+printed beside it.  Mode walls are host clocks around synchronised calls.
 
 Run:  python3 chip_smoke.py      (needs one CUDA GPU, nvcc for sm_90a)
 """
@@ -109,7 +127,7 @@ from ccqppy_tpu_torch.ops.linop import (BlockSparseOperator, CastDense, DenseOpe
 from ccqppy_tpu_torch.ops.projections import blockwise, box, lorentz_cone
 from ccqppy_tpu_torch.parallel import (prepare_dense_batch, solve_batched,
                                        solve_batched_fused_compact, solve_batched_mixed)
-from ccqppy_tpu_torch.utils.benchmark import dense_sweep_bytes, timed_run
+from ccqppy_tpu_torch.utils.benchmark import dense_sweep_bytes, device_ms, timed_run
 from ccqppy_tpu_torch.utils.random_qp import block_tridiag_qp, random_qp_batch
 from ccqppy_tpu_torch.utils.rng import split_keys
 
@@ -201,8 +219,10 @@ PAIR_SHAPES = ((B_ITER, N, torch.float32), (B_CONE, N_CONE, torch.float32),
                (B_ITER, N, torch.bfloat16), (B_F64, N, torch.float64),
                (1024, N, torch.float64))
 SYMV_TOL = 1e-5        # max rel err against the f64 plain version (the JAX bound)
-# (B, n, tile) of the symv checks; the last is the packed mode's shape.
+# (B, n, tile) of the symv checks; the last is the packed mode's shape, and
+# its lane 0 the single-problem shape of mode (l).
 SYMV_SHAPES = ((3, 512, 128), (3, 512, 256), (2, 1024, 512), (2048, 1024, 256))
+SYMV_PAIR_ROUNDS = 10  # interleaved rounds of symv_packed at its row slices and at one
 
 
 def require(ok, msg):
@@ -250,6 +270,12 @@ def run_packed(op, b, proj, cfg):
     return solve_batched_fused_compact(
         "pcg", op, b, PHASE1, x0=jacobi_x0(op.diagonal(), b), proj=proj,
         config=cfg, bucket=BUCKET, host_fallback=False)
+
+
+def run_single(op1, b, proj, cfg):
+    """One call of mode (l): PCG on one packed problem from the Jacobi
+    start, uncompacted."""
+    return pcg.solve(op1, b, x0=jacobi_x0(op1.diagonal(), b), proj=proj, config=cfg)
 
 
 def run_direct(Ainv, As, b, proj, cfg):
@@ -368,8 +394,10 @@ def audit_blocksparse(op, b, x):
     return pg_residual(proj64, x.double(), op64.matvec(x.double()) + b.double(), 1e-6)
 
 
-def time_ms(fn, reps=KERNEL_REPS, warmup=3):
-    """Median device time of ``fn`` in ms, by CUDA events."""
+def host_inclusive_ms(fn, reps=KERNEL_REPS, warmup=3):
+    """The earlier timer, printed beside ``device_ms`` for one shape of each
+    kernel: CUDA events around ``fn()`` on an idle stream, so the reading
+    holds the host's enqueue as well as the device time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -471,12 +499,13 @@ def check_kernels(gen, dev):
     bf16_abs = float((yb.double() - chunked_f64(gemv.batched_gemv_reference, Ab,
                                                 x.to(torch.bfloat16))).abs().max())
     del yb
-    ms = time_ms(lambda: gemv.batched_gemv(A, x))
-    plain_ms = time_ms(lambda: gemv.batched_gemv_reference(A, x))
+    ms = device_ms(lambda: gemv.batched_gemv(A, x))
+    host_ms = host_inclusive_ms(lambda: gemv.batched_gemv(A, x))
+    plain_ms = device_ms(lambda: gemv.batched_gemv_reference(A, x))
     # One PyTorch call for the same function (cuBLAS); the port never calls
     # it.  For bf16 A, x is rounded to bf16 outside the clock, and
     # ``out_dtype`` sums the bf16 products in f32 into an f32 y.
-    library_ms = time_ms(lambda: torch.bmm(A, x.unsqueeze(-1)))
+    library_ms = device_ms(lambda: torch.bmm(A, x.unsqueeze(-1)))
     xb = x.to(torch.bfloat16).unsqueeze(-1)
     y_lib = torch.bmm(Ab, xb, out_dtype=torch.float32).squeeze(-1)
     lib_err = rel_err(y_lib, gemv.batched_gemv_reference(Ab, x).double())
@@ -485,13 +514,13 @@ def check_kernels(gen, dev):
     require(y_lib.dtype == torch.float32 and lib_err < GEMV_BF16_PLAIN_TOL,
             f"torch.bmm bf16 -> f32 is not the bf16 GEMV's function: rel err {lib_err}")
     del y_lib
-    library_bf16 = time_ms(lambda: torch.bmm(Ab, xb, out_dtype=torch.float32))
-    ms_bf16 = time_ms(lambda: gemv.batched_gemv(Ab, x))
-    plain_ms_bf16 = time_ms(lambda: gemv.batched_gemv_reference(Ab, x))
+    library_bf16 = device_ms(lambda: torch.bmm(Ab, xb, out_dtype=torch.float32))
+    ms_bf16 = device_ms(lambda: gemv.batched_gemv(Ab, x))
+    plain_ms_bf16 = device_ms(lambda: gemv.batched_gemv_reference(Ab, x))
     f32_bytes, bf16_bytes = B * n * n * 4, B * n * n * 2
     print(f"gemv f32 (B={B}, n={n}): kernel {ms:.4f} ms "
-          f"({f32_bytes / ms / 1e6:.1f} GB/s), plain einsum {plain_ms:.4f} ms "
-          f"({f32_bytes / plain_ms / 1e6:.1f} GB/s)")
+          f"({f32_bytes / ms / 1e6:.1f} GB/s; host-inclusive {host_ms:.4f} ms), plain einsum "
+          f"{plain_ms:.4f} ms ({f32_bytes / plain_ms / 1e6:.1f} GB/s)")
     print(f"gemv bf16 (B={B}, n={n}): kernel {ms_bf16:.4f} ms "
           f"({bf16_bytes / ms_bf16 / 1e6:.1f} GB/s), plain (upcast + einsum) "
           f"{plain_ms_bf16:.4f} ms")
@@ -500,7 +529,8 @@ def check_kernels(gen, dev):
     print(f"gemv f32 (B={B}, n={n}): torch.bmm {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
           f"({bound_by}); bf16: torch.bmm(out_dtype=float32) {library_bf16:.4f} ms, "
           f"bound {bound_bf16:.4f} ms ({by_bf16})")
-    return {"max_abs_err": f32_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+    return {"max_abs_err": f32_abs, "ms": ms, "host_inclusive_ms": host_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
             "bf16": {"max_abs_err": bf16_abs, "ms": ms_bf16, "plain_ms": plain_ms_bf16,
                      "bound_ms": bound_bf16, "bound_by": by_bf16,
@@ -524,27 +554,33 @@ def check_kernel_f64(gen, dev):
         err = rel_err(y, ref)
         print(f"gemv f64 B={B} n={n}: rel err vs plain f64 {err:.3e}")
         require(err <= GEMV_F64_TOL, f"f64 gemv (B={B}, n={n}) rel err {err}")
+        if (B, n) == (B_F64, N):
+            ms = device_ms(lambda: gemv.batched_gemv(A, x))
+            host_ms = host_inclusive_ms(lambda: gemv.batched_gemv(A, x))
+            plain_ms = device_ms(lambda: gemv.batched_gemv_reference(A, x))
+            library_ms = device_ms(lambda: torch.bmm(A, x.unsqueeze(-1)))
+            library_host_ms = host_inclusive_ms(lambda: torch.bmm(A, x.unsqueeze(-1)))
+            bound_ms, bound_by = gemv_bound(A, x)
+            nbytes = A.numel() * 8
+            print(f"gemv f64 (B={B}, n={n}): kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s; "
+                  f"host-inclusive {host_ms:.4f} ms), plain {plain_ms:.4f} ms, torch.bmm "
+                  f"{library_ms:.4f} ms (host-inclusive {library_host_ms:.4f} ms); bound "
+                  f"{bound_ms:.4f} ms ({bound_by})")
+            measured = {"B": B, "n": n, "max_abs_err": float((y - ref).abs().max()),
+                        "max_rel_err": err, "ms": ms, "host_inclusive_ms": host_ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms, "library_host_inclusive_ms": library_host_ms}
         if n != 37:
             check_offsets(f"gemv f64 B={B} n={n}", A, x, y)
     require(gemv.LAUNCHES_F64 > before, "the f64 checks launched no f64 GEMV")
-    ms = time_ms(lambda: gemv.batched_gemv(A, x))
-    plain_ms = time_ms(lambda: gemv.batched_gemv_reference(A, x))
-    library_ms = time_ms(lambda: torch.bmm(A, x.unsqueeze(-1)))
-    bound_ms, bound_by = gemv_bound(A, x)
-    nbytes = A.numel() * 8
-    print(f"gemv f64 (B={B}, n={n}): kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), plain "
-          f"{plain_ms:.4f} ms, torch.bmm {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
-          f"({bound_by})")
-    return {"B": B, "n": n, "max_abs_err": float((y - ref).abs().max()), "max_rel_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+    return measured
 
 
 def gemv_pairs(gen, dev):
     """The GEMV kernel against its plain version (``einsum``; for bf16 A the
     upcast and ``einsum``) at PAIR_SHAPES: PAIR_ROUNDS interleaved rounds,
     each the kernel then the plain version (for f64 then ``torch.bmm``,
-    cuBLAS, too), each ``time_ms``.  Returns one record per shape: the
+    cuBLAS, too), each ``device_ms``.  Returns one record per shape: the
     medians over the rounds, GB/s of A, and the min / median / max of the
     per-round ratio kernel / plain (and kernel / ``torch.bmm``)."""
     pairs = []
@@ -555,10 +591,10 @@ def gemv_pairs(gen, dev):
             x = x.double()
         kern, plain, lib = [], [], []
         for _ in range(PAIR_ROUNDS):
-            kern.append(time_ms(lambda: gemv.batched_gemv(A, x)))
-            plain.append(time_ms(lambda: gemv.batched_gemv_reference(A, x)))
+            kern.append(device_ms(lambda: gemv.batched_gemv(A, x)))
+            plain.append(device_ms(lambda: gemv.batched_gemv_reference(A, x)))
             if dtype == torch.float64:
-                lib.append(time_ms(lambda: torch.bmm(A, x.unsqueeze(-1))))
+                lib.append(device_ms(lambda: torch.bmm(A, x.unsqueeze(-1))))
         ratios = sorted(k / p for k, p in zip(kern, plain))
         nbytes = A.numel() * A.element_size()
         ms, plain_ms = statistics.median(kern), statistics.median(plain)
@@ -640,28 +676,63 @@ def check_entry(name, fn, ref):
     return y, err, float((y.double() - ref).abs().max())
 
 
-def check_symv(gen, dev):
+def symv_pairs(Ap1, x1, n, slices):
+    """``symv_packed`` on one problem at ``slices`` row slices against one
+    slice: SYMV_PAIR_ROUNDS interleaved rounds, the order alternating, each
+    ``device_ms``.  Returns the medians and the min / median / max of the
+    per-round ratio."""
+    runs = {slices: [], 1: []}
+    for k in range(SYMV_PAIR_ROUNDS):
+        for S in ((slices, 1) if k % 2 == 0 else (1, slices)):
+            runs[S].append(device_ms(lambda: symv.symv_packed(Ap1, x1, n, slices=S)))
+    ratios = sorted(a / b for a, b in zip(runs[slices], runs[1]))
+    return {"ms": statistics.median(runs[slices]), "ms_s1": statistics.median(runs[1]),
+            "rounds": SYMV_PAIR_ROUNDS, "ratio_min": ratios[0],
+            "ratio_median": statistics.median(ratios), "ratio_max": ratios[-1]}
+
+
+def check_symv(gen, dev, floor_ms):
     """The three symv entry points against their plain versions on the
-    card; returns the measurements of each at the packed mode's shape, with
-    the launches this check made of each."""
+    card, at the row slices ``symv.row_slices`` picks and at one slice;
+    returns the measurements of each at the packed mode's shape (the
+    single-problem wrapper at its lane 0), with the launches this check
+    made of each."""
     before = dict(symv.LAUNCHES)
+    sms = symv.sm_count(dev.index)
     measured = {}
     for B, n, tile in SYMV_SHAPES:
         A = symmetric_batch(gen, dev, B, n)
         x = torch.randn((B, n), generator=gen, device=dev)
         Ap = symv.pack_symmetric(A, tile)
+        T = Ap.shape[1]
+        S_many, S_one = symv.row_slices(B, T, tile, sms), symv.row_slices(1, T, tile, sms)
         tag = f"B={B} n={n} tile={tile}"
+        ref_full = chunked_f64(lambda a, v: symv.batched_symv_reference(a, v, tile), A, x)
+        ref_pack = chunked_f64(lambda a, v: symv.batched_symv_packed_reference(a, v, n), Ap, x)
+        ref_one = symv.symv_packed_reference(Ap[0].double(), x[0].double(), n)
         y_full, err_full, abs_full = check_entry(
-            f"batched_symv {tag}", lambda: symv.batched_symv(A, x, tile),
-            chunked_f64(lambda a, v: symv.batched_symv_reference(a, v, tile), A, x))
+            f"batched_symv {tag}", lambda: symv.batched_symv(A, x, tile), ref_full)
         y_pack, err_pack, abs_pack = check_entry(
-            f"batched_symv_packed {tag}", lambda: symv.batched_symv_packed(Ap, x),
-            chunked_f64(lambda a, v: symv.batched_symv_packed_reference(a, v, n), Ap, x))
+            f"batched_symv_packed {tag}", lambda: symv.batched_symv_packed(Ap, x), ref_pack)
         y_one, err_one, abs_one = check_entry(
-            f"symv_packed n={n} tile={tile}", lambda: symv.symv_packed(Ap[0], x[0]),
-            symv.symv_packed_reference(Ap[0].double(), x[0].double(), n))
-        print(f"symv {tag}: rel err full {err_full:.3e}, packed {err_pack:.3e}, "
-              f"single {err_one:.3e}")
+            f"symv_packed n={n} tile={tile}", lambda: symv.symv_packed(Ap[0], x[0]), ref_one)
+        # One slice (the kernel before slices) against the same references.
+        y1_full, err1_full, _ = check_entry(
+            f"batched_symv {tag} S=1", lambda: symv.batched_symv(A, x, tile, slices=1), ref_full)
+        y1_pack, err1_pack, _ = check_entry(
+            f"batched_symv_packed {tag} S=1", lambda: symv.batched_symv_packed(Ap, x, slices=1),
+            ref_pack)
+        _, err1_one, _ = check_entry(
+            f"symv_packed n={n} tile={tile} S=1",
+            lambda: symv.symv_packed(Ap[0], x[0], slices=1), ref_one)
+        print(f"symv {tag}: row slices {S_many} (B={B}, {B * T * S_many} blocks), {S_one} (B=1, "
+              f"{T * S_one} blocks); rel err full {err_full:.3e}, packed {err_pack:.3e}, "
+              f"single {err_one:.3e}; at S=1 {err1_full:.3e}, {err1_pack:.3e}, {err1_one:.3e}")
+        if S_many == 1:
+            require(torch.equal(bits(y1_full), bits(y_full)) and
+                    torch.equal(bits(y1_pack), bits(y_pack)),
+                    f"symv {tag}: S=1 picked, yet forced S=1 differs")
+            print(f"symv {tag}: S=1 picked; bitwise equal to forced S=1 (full and packed)")
         # The strictly-lower off-diagonal tiles of the full layout are never
         # read: NaN there leaves the output bitwise the same.
         for i in range(n // tile):
@@ -669,42 +740,67 @@ def check_symv(gen, dev):
         y_nan = symv.batched_symv(A, x, tile)
         require(torch.equal(bits(y_nan), bits(y_full)),
                 f"batched_symv {tag}: output changed with NaN lower tiles")
+        del ref_full, ref_pack, y1_full, y1_pack
         if (B, n, tile) != SYMV_SHAPES[-1]:
             continue
+        require(S_many == 1, f"symv {tag}: row_slices picked {S_many}, not 1, at B={B}")
         packed_bytes = Ap.numel() * 4
-        ms_pack = time_ms(lambda: symv.batched_symv_packed(Ap, x))
-        plain_pack = time_ms(lambda: symv.batched_symv_packed_reference(Ap, x, n))
-        ms_full = time_ms(lambda: symv.batched_symv(A, x, tile))
-        plain_full = time_ms(lambda: symv.batched_symv_reference(A, x, tile))
-        ms_one = time_ms(lambda: symv.symv_packed(Ap[0], x[0]))
-        plain_one = time_ms(lambda: symv.symv_packed_reference(Ap[0], x[0], n))
+        ms_pack = device_ms(lambda: symv.batched_symv_packed(Ap, x))
+        host_pack = host_inclusive_ms(lambda: symv.batched_symv_packed(Ap, x))
+        plain_pack = device_ms(lambda: symv.batched_symv_packed_reference(Ap, x, n))
+        ms_full = device_ms(lambda: symv.batched_symv(A, x, tile))
+        plain_full = device_ms(lambda: symv.batched_symv_reference(A, x, tile))
         for label, ms, plain in (("packed", ms_pack, plain_pack),
                                  ("full layout", ms_full, plain_full)):
             print(f"symv {label} ({tag}, {packed_bytes / 1e9:.3f} GB of tiles): "
                   f"kernel {ms:.4f} ms ({packed_bytes / ms / 1e6:.1f} GB/s), "
                   f"plain {plain:.4f} ms ({packed_bytes / plain / 1e6:.1f} GB/s)")
-        print(f"symv_packed (B=1, n={n}, tile={tile}): kernel {ms_one:.4f} ms, "
-              f"plain {plain_one:.4f} ms")
+        print(f"symv packed ({tag}): host-inclusive {host_pack:.4f} ms")
         # Each reads the upper tiles once, x once, writes y once; 2 FLOPs
         # per element of the symmetric A.  No single PyTorch call reads only
-        # the upper tiles, so there is no library time.
+        # the upper tiles, so there is no library time.  The tiles of one
+        # problem (2.6 MB) stay in the 50 MB L2 from rep to rep, as they do
+        # from matvec to matvec in mode (l), so its bound is not a floor.
         io = 2 * B * n * 4
         b_many = bound(packed_bytes + io, 2 * B * n * n)
         b_one = bound(packed_bytes // B + io // B, 2 * n * n)
+        Ap1, x1 = Ap[0], x[0]
+        one = symv_pairs(Ap1, x1, n, S_one)
+        host_one = host_inclusive_ms(lambda: symv.symv_packed(Ap1, x1))
+        plain_one = device_ms(lambda: symv.symv_packed_reference(Ap1, x1, n))
+        print(f"symv pairs: symv_packed (B=1, n={n}, tile={tile}), {SYMV_PAIR_ROUNDS} rounds: "
+              f"S={S_one} ({T * S_one} blocks) {one['ms']:.4f} ms against S=1 ({T} blocks) "
+              f"{one['ms_s1']:.4f} ms; S={S_one} / S=1 min {one['ratio_min']:.4f}, median "
+              f"{one['ratio_median']:.4f}, max {one['ratio_max']:.4f}; launch floor "
+              f"{floor_ms:.4f} ms, bound {b_one[0]:.5f} ms ({b_one[1]}); host-inclusive "
+              f"{host_one:.4f} ms; plain {plain_one:.4f} ms")
         measured = {
-            "batched_symv": {"max_abs_err": abs_full, "ms": ms_full, "plain_ms": plain_full},
+            "batched_symv": {"max_abs_err": abs_full, "ms": ms_full, "plain_ms": plain_full,
+                             "slices": S_many},
             "batched_symv_packed": {"max_abs_err": abs_pack, "ms": ms_pack,
-                                    "plain_ms": plain_pack},
-            "symv_packed": {"max_abs_err": abs_one, "ms": ms_one, "plain_ms": plain_one},
+                                    "host_inclusive_ms": host_pack, "plain_ms": plain_pack,
+                                    "slices": S_many},
+            "symv_packed": {"max_abs_err": abs_one, "plain_ms": plain_one,
+                            "host_inclusive_ms": host_one, "slices": S_one, **one},
         }
         for name, (bms, by) in (("batched_symv", b_many), ("batched_symv_packed", b_many),
                                 ("symv_packed", b_one)):
-            measured[name].update(bound_ms=bms, bound_by=by, library_ms=None)
+            measured[name].update(bound_ms=bms, bound_by=by, library_ms=None, floor_ms=floor_ms)
         del y_full, y_pack, y_one, y_nan
     for name, m in measured.items():
         m["kernel_phase_launches"] = symv.LAUNCHES[name] - before[name]
         require(m["kernel_phase_launches"] > 0, f"the symv checks launched no {name}")
     return measured
+
+
+def launch_floor(dev):
+    """The device time of a minimal launch: an in-place add on a
+    one-element tensor.  Printed with its host-inclusive reading."""
+    one = torch.zeros(1, device=dev)
+    ms = device_ms(lambda: one.add_(1))
+    print(f"launch floor (in-place add on one element): device-only {ms:.4f} ms, "
+          f"host-inclusive {host_inclusive_ms(lambda: one.add_(1)):.4f} ms")
+    return ms
 
 
 def rr_pairs(runs, bs, gen, proj):
@@ -801,6 +897,7 @@ def main():
         if "entry function" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
+    floor_ms = launch_floor(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     measured = check_kernels(gen, dev)
     torch.cuda.empty_cache()
@@ -808,7 +905,7 @@ def main():
     measured["f64"] = check_kernel_f64(torch.Generator(device=dev).manual_seed(SEED + 3), dev)
     torch.cuda.empty_cache()
     measured["pairs"] = gemv_pairs(torch.Generator(device=dev).manual_seed(SEED + 1), dev)
-    measured_symv = check_symv(gen, dev)
+    measured_symv = check_symv(gen, dev, floor_ms)
     torch.cuda.empty_cache()
 
     proj = box(-torch.ones(N), torch.ones(N), device=dev)
@@ -852,6 +949,23 @@ def main():
           f"dense iterative warm-up call")
     del op, r_dense, r_packed
     torch.cuda.empty_cache()
+
+    # ---- (l) single request, packed: lane 0 of the same ensemble alone -----
+    op1 = SymmetricPackedDense.from_dense(As[:1], tile=TILE_PACKED)
+    zero_counts()
+    r_one, _ = run_mode("single packed", lambda b: run_single(op1, b, proj, cfg),
+                        As[:1], bs[:1], x_uncon[:1], gen, op1.Ap.numel() * 4, 10,
+                        lambda: symv.LAUNCHES["symv_packed"])
+    single_launches = dict(symv.LAUNCHES)
+    require(single_launches["symv_packed"] > 0, "mode (l) launched no symv_packed kernel")
+    require(single_launches["batched_symv_packed"] == single_launches["batched_symv"] == 0,
+            f"mode (l) launched a batched symv entry: {single_launches}")
+    require(gemv.LAUNCHES == 0, "mode (l) launched the dense GEMV kernel")
+    print(f"single packed (l): iterations {int(r_one.iterations[0])}, matvecs "
+          f"{int(r_one.matvecs[0])} in the warm-up call; symv launches over the warm-up and "
+          f"timed calls {single_launches}; the wall is host-bound (the solver's small kernels "
+          f"around each symv), not a kernel measurement")
+    del op1, r_one
 
     # ---- (e) bbpgd_f: the README quick start on the same ensemble ----------
     diag = As.diagonal(dim1=-2, dim2=-1)
@@ -971,9 +1085,9 @@ def main():
     err = rel_err(y, ref)
     require(err < GEMV_F32_TOL, f"f32 gemv (B={B_CONE}, n={N_CONE}) rel err {err}")
     gemv_999 = {"max_abs_err": float((y.double() - ref).abs().max()),
-                "ms": time_ms(lambda: gemv.batched_gemv(As, x)),
-                "plain_ms": time_ms(lambda: gemv.batched_gemv_reference(As, x)),
-                "library_ms": time_ms(lambda: torch.bmm(As, x.unsqueeze(-1)))}
+                "ms": device_ms(lambda: gemv.batched_gemv(As, x)),
+                "plain_ms": device_ms(lambda: gemv.batched_gemv_reference(As, x)),
+                "library_ms": device_ms(lambda: torch.bmm(As, x.unsqueeze(-1)))}
     gemv_999["bound_ms"], gemv_999["bound_by"] = gemv_bound(As, x)
     del y, ref, x
     print(f"gemv f32 (B={B_CONE}, n={N_CONE}): rel err {err:.3e}, "
@@ -1152,11 +1266,13 @@ def main():
     del op, b_huge, x_exact, r, out
     torch.cuda.empty_cache()
 
-    # ``launches`` is each entry's count over the main path's modes (0 for
-    # the two symv entries no mode runs); ``kernel_phase_launches`` counts
-    # the symv checks above, which are not part of the main path.
+    # ``launches`` is each entry's count over the main path's modes: the
+    # packed mode's for batched_symv_packed, mode (l)'s for symv_packed, 0
+    # for batched_symv, which no mode runs; ``kernel_phase_launches``
+    # counts the symv checks above, which are not part of the main path.
     symv_src = "ccqppy_tpu_torch/csrc/batched_symv.cu"
     symv_lines = {"batched_symv": 133, "batched_symv_packed": 248, "symv_packed": 292}
+    path_launches = {**symv_launches, "symv_packed": single_launches["symv_packed"]}
     print(json.dumps({"kernels": [
         {"name": "batched_gemv", "route": "cuda",
          "source": "ccqppy_tpu_torch/csrc/batched_gemv.cu",
@@ -1166,7 +1282,7 @@ def main():
          "n999": gemv_999},
         *({"name": name, "route": "cuda", "source": symv_src,
            "replaces": f"ccqppy_tpu/ops/pallas_kernels.py:{line}",
-           "launches": symv_launches[name], **measured_symv[name]}
+           "launches": path_launches[name], **measured_symv[name]}
           for name, line in symv_lines.items())]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -54,3 +54,39 @@ def test_make_args_and_check_see_every_rep():
     assert seen == [-1, 0, 1]                   # warm-up + 2 reps
     assert checked == [1.0, 2.0]                # the timed reps only
     np.testing.assert_allclose(out.result.numpy(), 2.0)
+
+
+def _scripted_device_ms(monkeypatch, reps_out, reps):
+    """``device_ms`` with its card parts replaced: each rep returns the next
+    (device ms, host ms, spin ms) of ``reps_out``; returns the spins asked
+    for."""
+    from ccqppy_tpu_torch.utils import benchmark
+    asked = []
+    script = iter(reps_out)
+
+    def held(fn, cycles):
+        asked.append(cycles)
+        return next(script)
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(benchmark, "_spin_cycles_per_ms", lambda device: 1000.0)
+    monkeypatch.setattr(benchmark, "_held_rep", held)
+    return benchmark.device_ms(lambda: None, reps=reps, warmup=1), asked
+
+
+def test_device_ms_keeps_only_reps_enqueued_within_their_spin(monkeypatch):
+    """A rep whose host enqueue outlasted its spin is never kept: it is
+    taken again behind a spin twice as long."""
+    ms, asked = _scripted_device_ms(
+        monkeypatch, [(1.0, 0.5, 1.0), (9.0, 1.5, 1.0), (2.0, 0.5, 2.0), (3.0, 0.5, 2.0)], 3)
+    assert ms == 2.0
+    assert asked[1] == asked[0] and asked[2] == 2 * asked[0] and asked[3] == asked[2]
+    assert asked[0] >= 1000.0     # MIN_SPIN_S at 1000 cycles a ms
+
+
+def test_device_ms_raises_when_no_rep_is_clean(monkeypatch):
+    from ccqppy_tpu_torch.utils import benchmark
+    stalled = [(1.0, 5.0, 1.0)] * benchmark.HELD_RETRIES
+    with pytest.raises(RuntimeError, match="host time"):
+        _scripted_device_ms(monkeypatch, [(1.0, 0.5, 1.0)] + stalled, 2)

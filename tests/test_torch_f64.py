@@ -256,6 +256,30 @@ def test_f64_kernel_matches_plain_on_cuda(cuda, B, n):
             assert torch.equal(y_off.view(torch.int64), y.view(torch.int64)), (a_off, x_off)
 
 
+GEOMETRY_SHAPES = [(B, n) for B in (1, 3) for n in (1, 3, 31, 33, 999, 1000, 1024, 1025, 2049)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", GEOMETRY_SHAPES, ids=[f"B{B}-n{n}" for B, n in GEOMETRY_SHAPES])
+def test_f64_kernel_tiles_and_offsets_on_cuda(cuda, B, n):
+    """The f64 instance (column tiles of 512 elements: one at n <= 512, two
+    at 1000 and 1024, three at 1025, five at 2049; rows not 16-byte
+    aligned; rows at the tensor's ends) against the plain f64 version, and
+    bitwise the same at storage offsets 0-3 of A and of x, with NaN around
+    both."""
+    gen = torch.Generator(device=cuda).manual_seed(B * 7919 + n)
+    A = torch.randn((B, n, n), generator=gen, device=cuda, dtype=torch.float64)
+    x = torch.randn((B, n), generator=gen, device=cuda, dtype=torch.float64)
+    y = gemv.batched_gemv(A, x)
+    ref = gemv.batched_gemv_reference(A, x)
+    assert float((y - ref).abs().max() / ref.abs().max()) < F64_TOL
+    for a_off in range(4):
+        for x_off in range(4):
+            y_off = gemv.batched_gemv(_offset_view(A, a_off), _offset_view(x, x_off))
+            assert torch.equal(y_off.view(torch.int64), y.view(torch.int64)), (a_off, x_off)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_rung_on_cuda_launches_both_instances(cuda):
     """MixedPrecDense(f64, f32) on the card: the cheap sweep is one f32

@@ -7,6 +7,7 @@ port's operator is batched; the JAX one is applied per lane under
 ``jax.vmap``.
 """
 import importlib.util
+import types
 from pathlib import Path
 
 import numpy as np
@@ -18,11 +19,14 @@ import jax.numpy as jnp
 
 import ccqppy_tpu as cq
 from ccqppy_tpu.models import PCGConfig as JaxPCGConfig
+from ccqppy_tpu.models.pcg import solve as jax_pcg_solve
 from ccqppy_tpu.ops.linop import DenseOperator as JaxDense
 from ccqppy_tpu.ops.linop import SymmetricPackedDense as JaxPacked
 from ccqppy_tpu.parallel.batch import solve_batched as jax_solve_batched
 from ccqppy_tpu.parallel.batch import \
     solve_batched_fused_compact as jax_fused_compact
+from ccqppy_tpu_torch.models import pcg
+from ccqppy_tpu_torch.ops import symv
 from ccqppy_tpu_torch.ops.linop import DenseOperator, SymmetricPackedDense
 from ccqppy_tpu_torch.parallel import batch
 from ccqppy_tpu_torch.utils.convert import (config_from_jax, operator_from_jax,
@@ -142,13 +146,86 @@ def test_fused_compact_through_packed_operator_matches_jax(host_fallback):
     _assert_lanes_match(rj, rt)
 
 
+def _load_chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def _as_lane(rj):
+    """A JAX single-problem result as one lane of a batch."""
+    return types.SimpleNamespace(**{k: np.asarray(getattr(rj, k))[None] for k in
+                                    ("converged", "matvecs", "iterations", "x", "residual")})
+
+
+def test_single_problem_matvec_routes_through_symv_packed(monkeypatch):
+    """B = 1: the matvec is one ``symv.symv_packed`` call, as the JAX
+    operator of one problem applies it; B > 1: ``batched_symv_packed``
+    and no single-problem call.  Both give the dense product."""
+    calls = []
+    single = symv.symv_packed
+
+    def recording(Ap, x, n=None, slices=None):
+        calls.append((tuple(Ap.shape), tuple(x.shape), n))
+        return single(Ap, x, n, slices)
+
+    monkeypatch.setattr(symv, "symv_packed", recording)
+    A, _ = _wishart(3, 200, 16, 1.0)
+    x = np.random.default_rng(17).standard_normal((3, 200))
+    one = SymmetricPackedDense.from_dense(torch.from_numpy(A[:1]), tile=TILE)
+    y = one.matvec(torch.from_numpy(x[:1]))
+    assert calls == [((3, TILE, TILE), (256,), 256)]
+    assert y.shape == (1, 200)
+    np.testing.assert_allclose(y.numpy(), np.einsum("bij,bj->bi", A[:1], x[:1]), rtol=1e-12,
+                               atol=1e-9)
+    many = SymmetricPackedDense.from_dense(torch.from_numpy(A), tile=TILE)
+    y = many.matvec(torch.from_numpy(x))
+    assert len(calls) == 1
+    np.testing.assert_allclose(y.numpy(), np.einsum("bij,bj->bi", A, x), rtol=1e-12, atol=1e-9)
+
+
+def test_single_problem_pcg_matches_jax():
+    """PCG on one packed problem (n = 200, tile 128, f64, constraints
+    binding) against the JAX package's single-problem ``pcg.solve`` on an
+    unbatched ``SymmetricPackedDense`` (the Pallas ``symv_packed`` in
+    interpret mode): equal ``converged``, matvecs and iterations, x and
+    the residual within 1e-10."""
+    A, b = _wishart(1, N, 18, 1.5)
+    jop = JaxPacked.from_dense(jnp.asarray(A[0]), tile=TILE)
+    jproj = cq.box(-jnp.ones(N), jnp.ones(N), dtype=jnp.float64)
+    jcfg = JaxPCGConfig(tol=1e-8, max_matvecs=300)
+    rj = jax_pcg_solve(jop, jnp.asarray(b[0]), proj=jproj, config=jcfg)
+    op = SymmetricPackedDense.from_dense(torch.from_numpy(A), tile=TILE)
+    rt = pcg.solve(op, torch.from_numpy(b), proj=proj_from_jax(jproj), config=config_from_jax(jcfg))
+    assert bool(np.asarray(rj.converged)) and int(np.asarray(rj.matvecs)) > 10
+    _assert_lanes_match(_as_lane(rj), rt)
+
+
+def test_single_mode_matches_jax_wiring():
+    """chip_smoke.py's mode (l) (one packed problem, the Jacobi start from
+    the operator's diagonal, PCG at the box modes' tol and budget,
+    uncompacted) against the JAX package's single-problem solve wired the
+    same way, on bench.py's family."""
+    cs = _load_chip_smoke()
+    A, b = _wishart(1, N, 19, 1.0)
+    b = b + 1e-3 * np.random.default_rng(20).standard_normal((1, N))
+    jop = JaxPacked.from_dense(jnp.asarray(A[0]), tile=TILE)
+    bj = jnp.asarray(b[0])
+    jproj = cq.box(-jnp.ones(N), jnp.ones(N), dtype=jnp.float64)
+    jcfg = JaxPCGConfig(tol=cs.TOL, max_matvecs=cs.BUDGET)
+    rj = jax_pcg_solve(jop, bj, x0=jnp.clip(-bj / jop.diag, -1.0, 1.0), proj=jproj, config=jcfg)
+    op1 = SymmetricPackedDense.from_dense(torch.from_numpy(A), tile=TILE)
+    rt = cs.run_single(op1, torch.from_numpy(b), proj_from_jax(jproj), config_from_jax(jcfg))
+    assert bool(np.asarray(rj.converged))
+    _assert_lanes_match(_as_lane(rj), rt)
+
+
 def test_packed_mode_matches_jax_wiring():
     """chip_smoke.py's packed mode (Jacobi warm start from the operator's
     diagonal, phase 1 at PHASE1, a BUCKET-lane bucket) against the JAX
     package wired the same way, on bench.py's family."""
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = _load_chip_smoke()
     A, b = _wishart(B, N, 13, 1.0)
     b = b + 1e-3 * np.random.default_rng(14).standard_normal((B, N))
     jop = JaxPacked.from_dense(jnp.asarray(A), tile=TILE)
