@@ -24,8 +24,11 @@ versions on CPU tensors.
                                    strong-convexity APGD (``apgd``), the
                                    spectral projected gradient (``spg``)
                                    and direct serving (``direct``).
-* ``ccqppy_tpu_torch.parallel`` -- batched solves with straggler compaction
-                                   and the bf16 -> f32 precision ladder.
+* ``ccqppy_tpu_torch.parallel`` -- batched solves with straggler compaction,
+                                   the bf16 -> f32 precision ladder, and the
+                                   distributed layer on ``torch.distributed``
+                                   (scenario-sharded batches, row-sharded
+                                   QPs, process groups and meshes).
 * ``ccqppy_tpu_torch.utils``    -- random QP ensembles, per-lane RNG keys
                                    (``rng``), guarded timing, and
                                    conversion of problems, sets and configs
@@ -47,8 +50,10 @@ from ccqppy_tpu_torch.ops import projections, symv  # noqa: F401
 from ccqppy_tpu_torch.ops.linop import (BlockSparseOperator,  # noqa: F401
                                         CastDense, DenseOperator, FastDense,
                                         LinearOperator, MixedPrecDense,
-                                        SpectralDense, SymmetricPackedDense,
-                                        as_operator, estimate_spectral_bounds)
+                                        ShardedBlockSparseOperator,
+                                        ShardedDenseOperator, SpectralDense,
+                                        SymmetricPackedDense, as_operator,
+                                        estimate_spectral_bounds)
 from ccqppy_tpu_torch.ops.projections import (BallProj, BlockwiseProj,  # noqa: F401
                                               BoxProj, IdentityProj,
                                               LorentzConeProj, LowerBoundProj,

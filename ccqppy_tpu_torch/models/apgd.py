@@ -221,7 +221,7 @@ def solve_sc(A, b, x0=None, proj=None, config: APGDSCConfig = APGDSCConfig()):
     if mu is None:
         # In-solve estimate through op.matvec, charged to the budget.
         v0 = torch.ones_like(b) / torch.sqrt(torch.tensor(b.shape[-1], dtype=b.dtype))
-        L, mu = power_spectral_bounds(op.matvec, v0, config.bound_iters)
+        L, mu = power_spectral_bounds(op.matvec, v0, config.bound_iters, dot=op.dot)
         mv0 = 2 * int(config.bound_iters) + 2
     L = L.to(b.dtype)[:, None]
     q = torch.clamp(mu.to(b.dtype)[:, None] / L, 1e-12, 1.0)

@@ -4,7 +4,9 @@ Port of the single-device operators of ``ccqppy_tpu/ops/linop.py``: the
 ``LinearOperator`` protocol, ``DenseOperator``, ``FastDense``,
 ``BlockSparseOperator``, ``CastDense``, ``MixedPrecDense``,
 ``SymmetricPackedDense``, ``SpectralDense`` with
-``estimate_spectral_bounds``, and ``as_operator``.
+``estimate_spectral_bounds``, and ``as_operator``; and of the row-sharded
+operators ``ShardedDenseOperator`` and ``ShardedBlockSparseOperator``, whose
+collectives are ``torch.distributed`` calls (``ops.collectives``).
 A dense operator holds a ``(B, n, n)`` stack;
 ``matvec`` maps ``(B, n)`` to ``(B, n)`` through ``ops.gemv.batched_gemv``
 (the hand-written kernel on CUDA, exact fp32 or f64 FMA; for a bf16 stack
@@ -22,9 +24,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
-from ccqppy_tpu_torch.ops import symv
+from ccqppy_tpu_torch.ops import collectives, symv
 from ccqppy_tpu_torch.ops.gemv import batched_gemv
 
 
@@ -77,6 +80,48 @@ def _check_stack(cls, A, dtypes):
         names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
         hint = " (a bfloat16 stack is a CastDense)" if A.dtype == torch.bfloat16 else ""
         raise TypeError(f"{cls} takes a {names} stack, not {A.dtype}{hint}")
+
+
+def _check_ell(cls, blocks, cols):
+    if blocks.dim() != 5 or blocks.shape[3] != blocks.shape[4]:
+        raise ValueError(f"blocks must be (B, nbr, k_max, bs, bs), got {tuple(blocks.shape)}")
+    if blocks.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{cls} takes float32 or float64 blocks, not {blocks.dtype}")
+    if cols.shape != blocks.shape[:3] or cols.dtype != torch.int64:
+        raise TypeError(f"cols must be int64 of shape {tuple(blocks.shape[:3])}, got "
+                        f"{cols.dtype} {tuple(cols.shape)}")
+    if cols.device != blocks.device:
+        raise ValueError(f"blocks on {blocks.device} but cols on {cols.device}")
+
+
+def _ell_rows(cols, nbr_x):
+    """The rows of x's blocks in a flat (B * nbr_x, bs) view of an x (B, n)
+    with ``nbr_x`` block rows, one for each (lane, block row, slot)."""
+    lane = torch.arange(cols.shape[0], dtype=torch.int64, device=cols.device)
+    return (cols + nbr_x * lane[:, None, None]).reshape(-1)
+
+
+def _ell_matvec(blocks, rows, x):
+    """Per lane, each block row's ``k_max`` blocks times the blocks of x they
+    point at (``rows``, from ``_ell_rows``), summed over the slots: (B,
+    nbr * bs) in ``promote(blocks, x)``.  An elementwise product and sums
+    over the last axis, so every product is exact in the sums' dtype."""
+    B, nbr, kmax, bs, _ = blocks.shape
+    acc = torch.promote_types(blocks.dtype, x.dtype)
+    xb = x.reshape(-1, bs).to(acc).index_select(0, rows)
+    prod = (blocks.to(acc) * xb.view(B, nbr, kmax, 1, bs)).sum(dim=-1)
+    return prod.sum(dim=2).reshape(B, nbr * bs)
+
+
+def _ell_diagonal(blocks, cols, first_row):
+    """diag(A) on the block rows held, the first of which is global block
+    row ``first_row``: per block row, the diagonal of its blocks whose
+    column is the row's own."""
+    B, nbr, _, bs, _ = blocks.shape
+    rows = first_row + torch.arange(nbr, dtype=cols.dtype, device=cols.device)
+    on_diag = (cols == rows[None, :, None]).to(blocks.dtype)
+    diag_blocks = (blocks * on_diag[..., None, None]).sum(dim=2)
+    return torch.diagonal(diag_blocks, dim1=-2, dim2=-1).reshape(B, nbr * bs)
 
 
 class DenseOperator(LinearOperator):
@@ -135,21 +180,10 @@ class BlockSparseOperator(LinearOperator):
     """
 
     def __init__(self, blocks, cols):
-        if blocks.dim() != 5 or blocks.shape[3] != blocks.shape[4]:
-            raise ValueError(f"blocks must be (B, nbr, k_max, bs, bs), got {tuple(blocks.shape)}")
-        if blocks.dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"BlockSparseOperator takes float32 or float64 blocks, "
-                            f"not {blocks.dtype}")
-        if cols.shape != blocks.shape[:3] or cols.dtype != torch.int64:
-            raise TypeError(f"cols must be int64 of shape {tuple(blocks.shape[:3])}, got "
-                            f"{cols.dtype} {tuple(cols.shape)}")
-        if cols.device != blocks.device:
-            raise ValueError(f"blocks on {blocks.device} but cols on {cols.device}")
+        _check_ell("BlockSparseOperator", blocks, cols)
         B, nbr, _, bs, _ = blocks.shape
         self.blocks, self.cols, self.n = blocks, cols, int(nbr * bs)
-        # The rows of x's blocks in a flat (B * nbr, bs) view of x.
-        lane = torch.arange(B, dtype=torch.int64, device=cols.device)
-        self._rows = (cols + nbr * lane[:, None, None]).reshape(-1)
+        self._rows = _ell_rows(cols, nbr)
 
     @staticmethod
     def from_dense_blocks(blocks, cols):
@@ -185,24 +219,142 @@ class BlockSparseOperator(LinearOperator):
                                    torch.as_tensor(cols[None], device=device))
 
     def matvec(self, x):
-        B, nbr, kmax, bs, _ = self.blocks.shape
-        acc = torch.promote_types(self.blocks.dtype, x.dtype)
-        xb = x.reshape(B * nbr, bs).to(acc).index_select(0, self._rows)
-        prod = (self.blocks.to(acc) * xb.view(B, nbr, kmax, 1, bs)).sum(dim=-1)
-        return prod.sum(dim=2).reshape(B, self.n)
+        return _ell_matvec(self.blocks, self._rows, x)
 
     def inf_norm(self):
         return self.blocks.abs().sum(dim=(2, 4)).amax(dim=(1, 2))
 
     def diagonal(self):
-        B, nbr, _, bs, _ = self.blocks.shape
-        rows = torch.arange(nbr, dtype=self.cols.dtype, device=self.cols.device)
-        on_diag = (self.cols == rows[None, :, None]).to(self.blocks.dtype)
-        diag_blocks = (self.blocks * on_diag[..., None, None]).sum(dim=2)
-        return torch.diagonal(diag_blocks, dim1=-2, dim2=-1).reshape(B, self.n)
+        return _ell_diagonal(self.blocks, self.cols, 0)
 
     def take(self, idx):
         return BlockSparseOperator(self.blocks[idx], self.cols[idx])
+
+
+class _RowSharded(LinearOperator):
+    """The reductions of a row-sharded operator: this rank holds rows
+    [rank * n_local, (rank + 1) * n_local) of every lane's A and the solver
+    carries the matching rows of x (B, n_local).  Dots and norms sum their
+    per-rank partials over the process group ``group`` (all_reduce SUM),
+    the feasible-step minimum takes MIN, ``inf_norm`` MAX, so every rank
+    gets the same values and the unchanged solvers run distributed.
+    ``group`` None is the default process group."""
+
+    def __init__(self, group):
+        self.group = group
+        self.world = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+
+    def dot(self, u, v):
+        return collectives.all_reduce((u * v).sum(dim=-1), "sum", self.group)
+
+    def reduce_min(self, v):
+        return collectives.all_reduce(v.clone(), "min", self.group)
+
+    def global_size(self, x):
+        return x.shape[-1] * self.world
+
+    def _gather(self, x_local):
+        return collectives.all_gather_last(x_local, self.group)
+
+
+class ShardedDenseOperator(_RowSharded):
+    """Row-block-sharded dense operator: this rank's rows ``A_local (B,
+    n_local, n)`` of a (B, n, n) stack whose rows are split in equal
+    contiguous blocks over the ranks of ``group``, in rank order (what
+    ``parallel.sharded.solve_sharded`` makes).
+
+    ``matvec`` all-gathers x along its last axis (one collective) and
+    multiplies the local rows by it (``local_matvec``).  The JAX package
+    computes that product with an XLA dot at HIGHEST precision, not a
+    Pallas kernel; here it is ``torch.matmul``, which on CUDA needs TF32
+    off (PyTorch's default) so that f32 products stay IEEE: with
+    ``torch.backends.cuda.matmul.allow_tf32`` on, the f32 matvec raises.
+
+    The projection must be separable (box, bounds, identity) or blockwise
+    with blocks that do not cross a shard boundary: a set over all of x
+    (a ball, a cone spanning shards) would need collectives of its own.
+    """
+
+    def __init__(self, A_local, group=None):
+        if A_local.dim() != 3:
+            raise ValueError(f"A_local must be (B, n_local, n), got {tuple(A_local.shape)}")
+        if A_local.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"ShardedDenseOperator takes float32 or float64 rows, "
+                            f"not {A_local.dtype}")
+        super().__init__(group)
+        self.A_local = A_local
+
+    def local_matvec(self, x_full):
+        """This rank's rows of A x, from the whole x (B, n)."""
+        acc = torch.promote_types(self.A_local.dtype, x_full.dtype)
+        if self.A_local.is_cuda and acc == torch.float32 and torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError("ShardedDenseOperator needs IEEE f32 products: set "
+                               "torch.backends.cuda.matmul.allow_tf32 = False")
+        return torch.matmul(self.A_local.to(acc), x_full.to(acc).unsqueeze(-1)).squeeze(-1)
+
+    def matvec(self, x_local):
+        return self.local_matvec(self._gather(x_local))
+
+    def inf_norm(self):
+        local = self.A_local.abs().sum(dim=-1).amax(dim=-1)
+        return collectives.all_reduce(local, "max", self.group)
+
+    def diagonal(self):
+        """This rank's rows of diag(A): local row i is global row
+        ``rank * n_local + i``.  The offset holds only for equal contiguous
+        row blocks in rank order; any other layout raises here or would
+        pick off-diagonal entries."""
+        _, n_local, n = self.A_local.shape
+        if n_local * self.world != n:
+            raise ValueError(f"ShardedDenseOperator.diagonal requires equal contiguous row "
+                             f"blocks: n_local={n_local} * world={self.world} != n={n}")
+        i = torch.arange(n_local, device=self.A_local.device)
+        return self.A_local[:, i, self.rank * n_local + i]
+
+
+class ShardedBlockSparseOperator(_RowSharded):
+    """Row-block-sharded block-sparse (ELL) operator: the one huge QP of
+    ``BlockSparseOperator`` split over the ranks of ``group``.
+
+    Fields (this rank's share, B lanes):
+      blocks: (B, nbr_local, k_max, bs, bs) its block rows, in rank order.
+      cols:   (B, nbr_local, k_max) int64 GLOBAL block-column ids.
+      n:      the global dimension.
+
+    ``matvec`` all-gathers x (one collective a sweep, the dense sharded
+    path's pattern) and applies the local block rows to the whole x with
+    ``BlockSparseOperator``'s gather and sums, in plain PyTorch as the JAX
+    package's XLA einsum.  Reductions as in ``ShardedDenseOperator``.
+    """
+
+    def __init__(self, blocks, cols, n, group=None):
+        _check_ell("ShardedBlockSparseOperator", blocks, cols)
+        super().__init__(group)
+        self.blocks, self.cols, self.n = blocks, cols, int(n)
+        bs = blocks.shape[3]
+        if self.n % bs:
+            raise ValueError(f"n={self.n} is not a whole number of {bs}-blocks")
+        self._rows = _ell_rows(cols, self.n // bs)
+
+    def matvec(self, x_local):
+        return _ell_matvec(self.blocks, self._rows, self._gather(x_local))
+
+    def inf_norm(self):
+        local = self.blocks.abs().sum(dim=(2, 4)).amax(dim=(1, 2))
+        return collectives.all_reduce(local, "max", self.group)
+
+    def diagonal(self):
+        """This rank's rows of diag(A): it holds global block rows
+        [rank * nbr_local, (rank + 1) * nbr_local).  As in
+        ``ShardedDenseOperator.diagonal``, equal contiguous block-row shards
+        in rank order only."""
+        nbr, bs = self.blocks.shape[1], self.blocks.shape[3]
+        if nbr * self.world * bs != self.n:
+            raise ValueError(f"ShardedBlockSparseOperator.diagonal requires equal contiguous "
+                             f"block-row shards: nbr_local={nbr} * world={self.world} * "
+                             f"bs={bs} != n={self.n}")
+        return _ell_diagonal(self.blocks, self.cols, self.rank * nbr)
 
 
 class CastDense(LinearOperator):
@@ -377,14 +529,17 @@ class SpectralDense(DenseOperator):
         return SpectralDense(self.A[idx], self.L[idx], self.mu[idx])
 
 
-def power_spectral_bounds(matvec, v0, iters=32, safety=0.02):
+def power_spectral_bounds(matvec, v0, iters=32, safety=0.02, dot=None):
     """Per-lane ``(L, mu)``, each ``(B,)``, of the operator ``matvec`` by
     power iteration from ``v0`` (B, n): lambda_max of A, then of ``c I - A``
     with ``c = 1.01 L`` (whose top eigenvalue is c - lambda_min), each
     after ``iters`` iterations and widened by ``safety``:
     ``L = (1 + safety) est``, ``mu = (1 - safety) est``.  2 (iters + 1)
-    matvecs."""
+    matvecs.  ``dot`` is the operator's inner product (a sharded
+    operator's sums over its ranks); None is the per-lane dot."""
     tiny = torch.finfo(v0.dtype).tiny
+    if dot is None:
+        dot = LinearOperator().dot
 
     def lam_max(shift):
         def apply(v):
@@ -394,8 +549,8 @@ def power_spectral_bounds(matvec, v0, iters=32, safety=0.02):
         v = v0
         for _ in range(int(iters)):
             w = apply(v)
-            v = w / (torch.sqrt((w * w).sum(-1, keepdim=True)) + tiny)
-        return (v * apply(v)).sum(-1)
+            v = w / (torch.sqrt(dot(w, w))[:, None] + tiny)
+        return dot(v, apply(v))
 
     L = (1.0 + safety) * lam_max(torch.zeros_like(v0[:, 0]))
     shift = L * 1.01

@@ -26,6 +26,10 @@ Differences of form, not of meaning:
 * ``take(idx)`` gathers every parameter along a leading lane axis, for
   projections whose parameters carry one (``proj_batched`` in
   ``parallel.batch``).
+* ``shard(lo, hi, n)`` cuts every coordinate-sized parameter to one rank's
+  rows of a row-sharded solve (``parallel.sharded``), where the JAX package
+  shards the projection's leaves with ``shard_map``'s ``in_specs``; a set
+  that couples coordinates across shards raises.
 """
 from __future__ import annotations
 
@@ -183,11 +187,31 @@ class Projection(nn.Module):
         new._modules = {k: m.take(idx) for k, m in self._modules.items()}
         return new
 
+    #: True when the set acts on each coordinate alone, so that the rows
+    #: [lo, hi) of a point are projected by the set on those coordinates.
+    separable = False
+
+    def shard(self, lo, hi, n):
+        """The set on coordinates [lo, hi) of n, for one rank of a
+        row-sharded solve (``parallel.sharded``): every parameter buffer
+        whose last axis has n entries is cut to [lo, hi), the others are
+        shared.  A set that couples coordinates across shards raises."""
+        if not self.separable:
+            raise ValueError(
+                f"{type(self).__name__} couples coordinates across shards: a row-sharded "
+                "solve takes a separable set (box, bounds, identity) or a blockwise one "
+                "whose blocks align with the shard boundaries")
+        new = copy.copy(self)
+        new._buffers = {k: v[..., lo:hi] if v is not None and v.dim() and v.shape[-1] == n
+                        else v for k, v in self._buffers.items()}
+        return new
+
 
 class IdentityProj(Projection):
     """All of R^n."""
 
     polyhedral = True
+    separable = True
 
     def project(self, x):
         return x
@@ -213,6 +237,7 @@ class LowerBoundProj(Projection):
     """{x : x >= lb}."""
 
     polyhedral = True
+    separable = True
 
     def __init__(self, lb):
         super().__init__()
@@ -260,6 +285,7 @@ class UpperBoundProj(Projection):
     """{x : x <= ub}."""
 
     polyhedral = True
+    separable = True
 
     def __init__(self, ub):
         super().__init__()
@@ -304,6 +330,7 @@ class BoxProj(Projection):
     either bound."""
 
     polyhedral = True
+    separable = True
 
     def __init__(self, lb, ub):
         super().__init__()
@@ -566,6 +593,21 @@ class BlockwiseProj(Projection):
 
     def contains(self, x):
         return self.child.contains(self._blocks(x)).all(dim=-1)
+
+    def shard(self, lo, hi, n):
+        """The blocks within [lo, hi), which must start and end on block
+        boundaries; per-block child parameters (``child_axes=0``) are cut to
+        those blocks, shared ones are kept."""
+        d = self.block_dim
+        if lo % d or hi % d:
+            raise ValueError(f"blocks of {d} cross the shard boundaries [{lo}, {hi}): a "
+                             "row-sharded solve needs blocks aligned with the shards")
+        new = copy.copy(self)
+        buf = next(self.child.buffers(), None)
+        if self.child_axes == 0 and buf is not None:
+            blocks = torch.arange(lo // d, hi // d, device=buf.device)
+            new._modules = {"child": self.child.take(blocks)}
+        return new
 
 
 class ProductProj(Projection):

@@ -1,8 +1,8 @@
 """Scenario batching with straggler compaction.
 
-Port of ``solve_batched``, ``solve_batched_compact``,
-``host_compact_finish`` and ``solve_batched_fused_compact`` from
-``ccqppy_tpu/parallel/batch.py``.
+Port of ``solve_batched``, ``solve_batched_sharded``, ``make_batch_mesh``,
+``solve_batched_compact``, ``host_compact_finish`` and
+``solve_batched_fused_compact`` from ``ccqppy_tpu/parallel/batch.py``.
 The port's solvers are batched already, so ``solve_batched`` is a direct
 call.  Compaction gathers the unconverged lanes (plain indexing of a raw
 stack, ``take`` of an operator) and re-solves exactly those lanes: per-lane
@@ -34,6 +34,7 @@ import torch
 from ccqppy_tpu_torch.models import SOLVERS
 from ccqppy_tpu_torch.models.base import SolveResult
 from ccqppy_tpu_torch.ops.linop import LinearOperator
+from ccqppy_tpu_torch.parallel.distributed import mesh_1d, mesh_axis
 from ccqppy_tpu_torch.utils import rng
 
 
@@ -78,6 +79,45 @@ def solve_batched(solver, A, b, x0=None, proj=None, config=None, keys=None,
         rng.check_keys(keys, b.shape[0], b.device)
     _check_lane_proj(proj, b.shape[0], proj_batched)
     return _get_solver(solver)(A, b, x0=x0, proj=proj, **_solver_kwargs(config, keys))
+
+
+def solve_batched_sharded(solver, A, b, mesh, axis="batch", x0=None,
+                          proj=None, config=None, keys=None,
+                          proj_batched=False):
+    """Scenario parallelism: the batch split over the ranks of
+    ``mesh[axis]``, each rank solving its contiguous ``B / size`` lanes
+    with ``solve_batched``.
+
+    Every rank passes the whole batch: A (B, n, n) tensor or operator, b,
+    x0 and keys with a leading lane axis, the projection shared or, with
+    ``proj_batched``, per lane.  A rank takes its lanes (views of a tensor,
+    ``take`` of an operator or a per-lane projection) and returns their
+    ``SolveResult``.  No collective runs: the ranks never wait on each
+    other, and each lane's result is the one ``solve_batched`` gives it.
+    The batch size must divide the axis size.
+    """
+    _, size, rank = mesh_axis(mesh, axis)
+    B = b.shape[0]
+    if B % size:
+        raise ValueError(f"batch {B} must divide the mesh axis size {size}")
+    lo, hi = rank * (B // size), (rank + 1) * (B // size)
+    idx = torch.arange(lo, hi, device=b.device)
+    # Every axis size slices the same way, one rank included; only an
+    # operator the rank holds whole is kept as it is (``take`` copies).
+    if not isinstance(A, LinearOperator):
+        A = A[lo:hi]
+    elif (lo, hi) != (0, B):
+        A = A.take(idx)
+    proj = _lane_proj(proj, idx, proj_batched)
+    b, x0, keys = (None if t is None else t[lo:hi] for t in (b, x0, keys))
+    return solve_batched(solver, A, b, x0=x0, proj=proj, config=config, keys=keys,
+                         proj_batched=proj_batched)
+
+
+def make_batch_mesh(n_devices=None, axis="batch"):
+    """1-D mesh named ``axis`` over ranks 0 .. ``n_devices`` - 1 (default:
+    every rank)."""
+    return mesh_1d(n_devices, axis)
 
 
 def _phase_configs(config, phase1_matvecs):

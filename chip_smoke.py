@@ -77,6 +77,29 @@ configuration of a JAX benchmark unchanged:
   call.  Its matvec is plain PyTorch: the mode launches no kernel of the
   package.
 
+Then the distributed layer, at world 1 over a real NCCL process group
+(``parallel.distributed.init_distributed`` on 127.0.0.1, the script's own
+``NCCL_SOCKET_IFNAME=lo``; a failed init fails the run): every all-gather
+and all-reduce is an NCCL call on device memory.
+
+* (m) (k)'s QP row-sharded: ``solve_sharded_blocksparse`` on (k)'s
+  operator and right-hand sides.  Its matvec count and x must equal (k)'s
+  bitwise (a one-rank all-gather and all-reduce change no value), with at
+  least one NCCL all-gather a matvec.
+* (n) one dense QP of the box family at n = 16,384 (1.07 GB f32, built on
+  the card with TF32 off), row-sharded: ``solve_sharded`` with Jacobi PCG
+  (the sharded ``diagonal()``) from the Jacobi start, tol 2e-5, budget
+  500, audited in f64 in row chunks; its local product (``torch.matmul``,
+  an XLA dot in the JAX package, not a kernel) is timed against its bound.
+* (o) the iterative ensemble (B=2048, n=1000) scenario-sharded:
+  ``solve_batched_sharded`` with PCG from the Jacobi start, lane for lane
+  bitwise ``solve_batched`` on the same inputs, through the GEMV kernel,
+  with no collective in the solve.  The one rank slices its lanes (a view
+  of the whole stack, b and x0) as a rank of any axis size does.
+
+Then ``scaling_probe([1])`` prints its row and the process group is
+destroyed.
+
 Steps: build the CUDA kernels from ``ccqppy_tpu_torch/csrc``; read the
 launch floor (the device time of an in-place add on a one-element
 tensor); hold each kernel's entry points against their plain PyTorch
@@ -106,11 +129,13 @@ printed beside it.  Mode walls are host clocks around synchronised calls.
 Run:  python3 chip_smoke.py      (needs one CUDA GPU, nvcc for sm_90a)
 """
 import json
+import os
 import statistics
 import subprocess
 import time
 
 import torch
+import torch.distributed as dist
 
 from ccqppy_tpu_torch.models import pcg, spg
 from ccqppy_tpu_torch.models.apgd import APGDConfig, APGDSCConfig
@@ -120,13 +145,17 @@ from ccqppy_tpu_torch.models.direct import solve_direct_batched, spd_inverse_bat
 from ccqppy_tpu_torch.models.mprgp import MPRGPBBConfig
 from ccqppy_tpu_torch.models.pcg import PCGConfig
 from ccqppy_tpu_torch.models.spg import SPGConfig
-from ccqppy_tpu_torch.ops import gemv, kernels, symv
+from ccqppy_tpu_torch.ops import collectives, gemv, kernels, symv
 from ccqppy_tpu_torch.ops.linop import (BlockSparseOperator, CastDense, DenseOperator,
-                                        MixedPrecDense, SpectralDense,
+                                        MixedPrecDense, ShardedDenseOperator, SpectralDense,
                                         SymmetricPackedDense, estimate_spectral_bounds)
 from ccqppy_tpu_torch.ops.projections import blockwise, box, lorentz_cone
-from ccqppy_tpu_torch.parallel import (prepare_dense_batch, solve_batched,
-                                       solve_batched_fused_compact, solve_batched_mixed)
+from ccqppy_tpu_torch.parallel import (init_distributed, make_batch_mesh, make_mesh,
+                                       prepare_dense_batch, scaling_probe, solve_batched,
+                                       solve_batched_fused_compact, solve_batched_mixed,
+                                       solve_batched_sharded, solve_sharded,
+                                       solve_sharded_blocksparse)
+from ccqppy_tpu_torch.parallel.distributed import COLLECTIVES, free_port, mesh_axis
 from ccqppy_tpu_torch.utils.benchmark import dense_sweep_bytes, device_ms, timed_run
 from ccqppy_tpu_torch.utils.random_qp import block_tridiag_qp, random_qp_batch
 from ccqppy_tpu_torch.utils.rng import split_keys
@@ -191,6 +220,12 @@ TOL_HUGE, BUDGET_HUGE = 1e-9, 10_000
 NOISE_HUGE = 1e-4
 SWEEPS_HUGE = 20   # the benchmark's traffic floor: 20 sweeps of the blocks
 SEED_HUGE = 0      # the benchmark's default_rng seed
+# (m), (n), (o): the distributed layer at world 1 over NCCL.
+DIST_TIMEOUT = 120     # seconds: the rendezvous and every collective
+N_SHARDED = 16_384     # (n): one dense QP of 1.07 GB f32
+SWEEPS_SHARDED = 10    # (n): least sweeps of one call, for the timing guard
+AUDIT_ROWS = 2048      # (n): rows of A a chunk of the f64 audit
+COLLECTIVE_REPS = 200  # calls in a row of each collective timed after (m)
 
 REPS = 3           # timed reps per mode
 KERNEL_REPS = 25   # timed launches per kernel measurement
@@ -234,6 +269,7 @@ def zero_counts():
     """Set every kernel's launch count to 0, just before a mode runs."""
     gemv.LAUNCHES = gemv.LAUNCHES_BF16 = gemv.LAUNCHES_F64 = 0
     symv.LAUNCHES.update(dict.fromkeys(symv.LAUNCHES, 0))
+    COLLECTIVES.update(dict.fromkeys(COLLECTIVES, 0))
 
 
 def jacobi_x0(diag, b):
@@ -342,6 +378,61 @@ def run_huge(op, b, proj, cfg):
     """One call of (k): PCG on the block-sparse QP from the default start,
     as the benchmark calls it."""
     return pcg.solve(op, b, proj=proj, config=cfg)
+
+
+def run_huge_sharded(op, b, proj, cfg, mesh):
+    """One call of (m): (k)'s solve row-sharded over ``mesh``."""
+    return solve_sharded_blocksparse("pcg", op.blocks, op.cols, b, mesh, proj=proj, config=cfg)
+
+
+def run_dense_sharded(A, b, proj, cfg, mesh):
+    """One call of (n): PCG on one dense QP row-sharded over ``mesh``, from
+    the Jacobi start."""
+    return solve_sharded("pcg", A, b, mesh, x0=jacobi_x0(A.diagonal(dim1=-2, dim2=-1), b),
+                         proj=proj, config=cfg)
+
+
+def run_scenario_sharded(As, b, diag, proj, cfg, mesh):
+    """One call of (o): PCG on the ensemble scenario-sharded over ``mesh``,
+    from the Jacobi start."""
+    return solve_batched_sharded("pcg", As, b, mesh, x0=jacobi_x0(diag, b), proj=proj,
+                                 config=cfg)
+
+
+def audit_rows(A, b, x, chunk=AUDIT_ROWS):
+    """True Eq. 25 residual of one QP (B = 1) in f64 on the box [-1, 1],
+    with the product taken in row chunks of f64 copies of A."""
+    x64 = x.double()
+    Ax = torch.cat([A[:, i:i + chunk].double() @ x64[..., None]
+                    for i in range(0, A.shape[1], chunk)], dim=1)[..., 0]
+    n = A.shape[-1]
+    proj64 = box(-torch.ones(n), torch.ones(n), dtype=torch.float64, device=x.device)
+    return pg_residual(proj64, x64, Ax + b.double(), 1e-6)
+
+
+def collective_host_ms(x, group, reps=COLLECTIVE_REPS):
+    """Wall per call, in ms, of the sharded operators' collectives at this
+    world size, ``reps`` calls in a row and then a synchronise: an
+    all-gather of ``x``, an all-reduce SUM of one value a lane, and for
+    scale an in-place add on that value (one small kernel)."""
+    one = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    out = {}
+    for name, fn in (("all_gather", lambda: collectives.all_gather_last(x, group)),
+                     ("all_reduce_sum", lambda: collectives.all_reduce(one, "sum", group)),
+                     ("add_", lambda: one.add_(1))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / reps * 1e3
+    return out
+
+
+def collectives_line(counts, iterations):
+    return (f"collectives {dict(counts)}, {sum(counts.values()) / max(iterations, 1):.2f} an "
+            f"iteration over {iterations} iterations")
 
 
 def f32_launches():
@@ -733,6 +824,17 @@ def check_symv(gen, dev, floor_ms):
                     torch.equal(bits(y1_pack), bits(y_pack)),
                     f"symv {tag}: S=1 picked, yet forced S=1 differs")
             print(f"symv {tag}: S=1 picked; bitwise equal to forced S=1 (full and packed)")
+        if (B, n, tile) == SYMV_SHAPES[-1]:
+            # One PyTorch call gives the full layout's y: torch.bmm over the
+            # whole stack (it reads the lower tiles too), timed before they
+            # turn NaN below.
+            y_bmm = torch.bmm(A, x.unsqueeze(-1))[..., 0]
+            err_bmm = rel_err(y_bmm, ref_full)
+            require(err_bmm < SYMV_TOL, f"torch.bmm {tag}: rel err {err_bmm}")
+            library_full = device_ms(lambda: torch.bmm(A, x.unsqueeze(-1)))
+            print(f"symv full layout ({tag}): torch.bmm over the whole stack {library_full:.4f} "
+                  f"ms device-only, rel err {err_bmm:.3e}")
+            del y_bmm
         # The strictly-lower off-diagonal tiles of the full layout are never
         # read: NaN there leaves the output bitwise the same.
         for i in range(n // tile):
@@ -758,7 +860,8 @@ def check_symv(gen, dev, floor_ms):
         print(f"symv packed ({tag}): host-inclusive {host_pack:.4f} ms")
         # Each reads the upper tiles once, x once, writes y once; 2 FLOPs
         # per element of the symmetric A.  No single PyTorch call reads only
-        # the upper tiles, so there is no library time.  The tiles of one
+        # the upper tiles: the packed layouts have no library time, the full
+        # one torch.bmm's over the whole stack (above).  The tiles of one
         # problem (2.6 MB) stay in the 50 MB L2 from rep to rep, as they do
         # from matvec to matvec in mode (l), so its bound is not a floor.
         io = 2 * B * n * 4
@@ -786,6 +889,7 @@ def check_symv(gen, dev, floor_ms):
         for name, (bms, by) in (("batched_symv", b_many), ("batched_symv_packed", b_many),
                                 ("symv_packed", b_one)):
             measured[name].update(bound_ms=bms, bound_by=by, library_ms=None, floor_ms=floor_ms)
+        measured["batched_symv"]["library_ms"] = library_full
         del y_full, y_pack, y_one, y_nan
     for name, m in measured.items():
         m["kernel_phase_launches"] = symv.LAUNCHES[name] - before[name]
@@ -878,6 +982,7 @@ def run_mode(name, run, As, bs, x_uncon, gen, sweep_bytes, sweeps_floor, count,
 
 
 def main():
+    t_start = time.perf_counter()
     require(torch.cuda.is_available(), "no CUDA device: this script runs only on a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1238,19 +1343,26 @@ def main():
     print(f"huge qp: warm-up call (unperturbed b): matvecs {int(r.matvecs[0])}, audited residual "
           f"{res:.3e}, rel err vs x_exact {err:.3e}")
     require(res <= TOL_HUGE * 1.05, f"huge qp: audited residual {res} above tol")
-    gen_huge = torch.Generator(device=dev).manual_seed(SEED + 4)
+    warm_k = r
     last = {}
 
-    def make_huge_args(rep):
-        last["b"] = b_huge + NOISE_HUGE * torch.randn(b_huge.shape, generator=gen_huge,
-                                                      device=dev)
-        return (last["b"],)
+    def huge_args(seed):
+        """The timed calls' right-hand sides: b perturbed from ``seed``, the
+        last one kept in ``last``."""
+        gen_huge = torch.Generator(device=dev).manual_seed(seed)
+
+        def make(rep):
+            last["b"] = b_huge + NOISE_HUGE * torch.randn(b_huge.shape, generator=gen_huge,
+                                                          device=dev)
+            return (last["b"],)
+        return make
 
     out = timed_run(lambda b: run_huge(op, b, proj_huge, cfg_huge), reps=REPS,
-                    make_args=make_huge_args, warmup=False,
+                    make_args=huge_args(SEED + 4), warmup=False,
                     implied_bytes=SWEEPS_HUGE * op_bytes,
                     check=lambda r_: require(bool(r_.converged.all()),
                                              "huge qp: a timed call did not converge"))
+    out_k = out
     r = out.result
     res = float(audit_blocksparse(op, last["b"], r.x).max())
     require(res <= TOL_HUGE * 1.05, f"huge qp: audited residual {res} above tol")
@@ -1263,8 +1375,149 @@ def main():
           f"residual {res:.3e}")
     require(gemv.LAUNCHES == 0 and not any(symv.LAUNCHES.values()),
             f"huge qp launched {gemv.LAUNCHES} GEMV and {dict(symv.LAUNCHES)} symv kernels")
-    del op, b_huge, x_exact, r, out
+
+    # ---- the distributed layer: world 1 over NCCL ---------------------------
+    # The rendezvous and NCCL's bootstrap stay on the loopback interface.
+    os.environ["NCCL_SOCKET_IFNAME"] = "lo"
+    t_dist = t0 = time.perf_counter()
+    rank, world = init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda",
+                                   timeout=DIST_TIMEOUT)
+    require(dist.get_backend() == "nccl" and (rank, world) == (0, 1),
+            f"init_distributed gave {dist.get_backend()} rank {rank} of {world}")
+    mesh = make_mesh(axis="model")
+    print(f"distributed: init_distributed (NCCL, world {world}) and make_mesh "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # ---- (m) (k)'s QP row-sharded ----------------------------------------
+    zero_counts()
+    r = run_huge_sharded(op, b_huge, proj_huge, cfg_huge, mesh)
+    torch.cuda.synchronize()
+    counts = dict(COLLECTIVES)
+    mv = int(r.matvecs[0])
+    require(mv == int(warm_k.matvecs[0]),
+            f"huge qp sharded: {mv} matvecs against (k)'s {int(warm_k.matvecs[0])}")
+    require(torch.equal(r.x, warm_k.x), "huge qp sharded: x differs from (k)'s")
+    require(counts["all_gather"] >= mv,
+            f"huge qp sharded: {counts['all_gather']} NCCL all-gathers for {mv} matvecs")
+    print(f"huge qp sharded (m): warm-up call matvecs {mv} and x bitwise (k)'s; "
+          f"{collectives_line(counts, int(r.iterations[0]))}")
+    out = timed_run(lambda b: run_huge_sharded(op, b, proj_huge, cfg_huge, mesh), reps=REPS,
+                    make_args=huge_args(SEED + 4), warmup=False,
+                    implied_bytes=SWEEPS_HUGE * op_bytes,
+                    check=lambda r_: require(bool(r_.converged.all()),
+                                             "huge qp sharded: a timed call did not converge"))
+    require(torch.equal(out.result.x, out_k.result.x),
+            "huge qp sharded: the last timed call's x differs from (k)'s on the same b")
+    res = float(audit_blocksparse(op, last["b"], out.result.x).max())
+    require(res <= TOL_HUGE * 1.05, f"huge qp sharded: audited residual {res} above tol")
+    require(gemv.LAUNCHES == 0 and not any(symv.LAUNCHES.values()),
+            "huge qp sharded launched a kernel of the package")
+    print(f"huge qp sharded (m): wall {out.wall_s:.4f} s (min of {REPS} "
+          f"{[round(w, 5) for w in out.walls]}) against (k)'s {out_k.wall_s:.4f} s on the same "
+          f"b's (ratio {out.wall_s / out_k.wall_s:.4f}), x bitwise (k)'s, audited residual "
+          f"{res:.3e}")
+    per_call = collective_host_ms(b_huge, mesh_axis(mesh, "model")[0])
+    print(f"huge qp sharded (m): wall per call over {COLLECTIVE_REPS} calls in a row: NCCL "
+          f"all-gather of x (1, {N_HUGE}) f32 {per_call['all_gather']:.4f} ms, NCCL all-reduce "
+          f"SUM of one value {per_call['all_reduce_sum']:.4f} ms, in-place add on one value "
+          f"{per_call['add_']:.4f} ms")
+    del op, b_huge, x_exact, r, out, out_k, warm_k
     torch.cuda.empty_cache()
+
+    # ---- (n) one dense QP row-sharded ------------------------------------
+    gen_n = torch.Generator(device=dev).manual_seed(SEED + 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    A_n, b_n, x_n = random_qp_batch(gen_n, 1, N_SHARDED, torch.float32, diag_boost=1.0)
+    torch.cuda.synchronize()
+    a_bytes = A_n.numel() * A_n.element_size()
+    print(f"dense sharded (n): prep random_qp_batch (n={N_SHARDED}) "
+          f"{time.perf_counter() - t0:.2f} s, A {a_bytes / 1e9:.3f} GB")
+    group = mesh_axis(mesh, "model")[0]
+    sop = ShardedDenseOperator(A_n, group)
+    require(torch.equal(sop.diagonal(), A_n.diagonal(dim1=-2, dim2=-1)),
+            "dense sharded: the sharded diagonal is not diag(A)")
+    proj_n = box(-torch.ones(N_SHARDED), torch.ones(N_SHARDED), device=dev)
+    cfg_n = PCGConfig(tol=TOL, max_matvecs=BUDGET, precond="jacobi")
+    zero_counts()
+    r = run_dense_sharded(A_n, b_n, proj_n, cfg_n, mesh)
+    torch.cuda.synchronize()
+    counts = dict(COLLECTIVES)
+    require(bool(r.converged.all()) and r.x.shape == (1, N_SHARDED)
+            and bool(torch.isfinite(r.x).all()), "dense sharded: the warm-up call failed")
+    res = float(audit_rows(A_n, b_n, r.x).max())
+    err = float((r.x - x_n).abs().max())
+    require(res <= TOL * 1.05, f"dense sharded: audited residual {res} above tol")
+    require(err < 1e-3, f"dense sharded: max |x - x*| = {err}")
+    require(counts["all_gather"] >= int(r.matvecs[0]),
+            f"dense sharded: {counts['all_gather']} all-gathers for {int(r.matvecs[0])} matvecs")
+    print(f"dense sharded (n): warm-up call matvecs {int(r.matvecs[0])}, iterations "
+          f"{int(r.iterations[0])}, audited residual {res:.3e}, max |x - x*| {err:.3e}; "
+          f"{collectives_line(counts, int(r.iterations[0]))}")
+    gen_nb = torch.Generator(device=dev).manual_seed(SEED + 6)
+    last_n = {}
+
+    def dense_args(rep):
+        last_n["b"] = b_n + NOISE * torch.randn(b_n.shape, generator=gen_nb, device=dev)
+        return (last_n["b"],)
+
+    out = timed_run(lambda b: run_dense_sharded(A_n, b, proj_n, cfg_n, mesh), reps=REPS,
+                    make_args=dense_args, warmup=False,
+                    implied_bytes=SWEEPS_SHARDED * a_bytes,
+                    check=lambda r_: require(bool(r_.converged.all()),
+                                             "dense sharded: a timed call did not converge"))
+    res = float(audit_rows(A_n, last_n["b"], out.result.x).max())
+    require(res <= TOL * 1.05, f"dense sharded: audited residual {res} above tol")
+    x_full = torch.randn((1, N_SHARDED), generator=gen_n, device=dev)
+    local_ms = device_ms(lambda: sop.local_matvec(x_full))
+    local_bound, local_by = bound(a_bytes + 2 * x_full.numel() * 4, 2 * A_n.numel())
+    mv = int(out.result.matvecs[0])
+    print(f"dense sharded (n): wall {out.wall_s:.4f} s (min of {REPS} "
+          f"{[round(w, 5) for w in out.walls]}), matvecs {mv}, iterations "
+          f"{int(out.result.iterations[0])}, {out.wall_s / mv * 1e3:.4f} ms a matvec, "
+          f"audited residual {res:.3e}; local product (torch.matmul, (1, {N_SHARDED}, "
+          f"{N_SHARDED}) f32) device-only {local_ms:.4f} ms against its bound "
+          f"{local_bound:.4f} ms ({local_by}; {local_bound / local_ms:.0%}), "
+          f"{a_bytes / local_ms / 1e6:.1f} GB/s")
+    del A_n, b_n, x_n, sop, r, out, x_full
+    torch.cuda.empty_cache()
+
+    # ---- (o) the iterative ensemble scenario-sharded -----------------------
+    As, bs, x_uncon = random_qp_batch(torch.Generator(device=dev).manual_seed(SEED + 7),
+                                      B_ITER, N, torch.float32, diag_boost=1.0, chunk=256)
+    diag = As.diagonal(dim1=-2, dim2=-1)
+    bmesh = make_batch_mesh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r_ref = solve_batched("pcg", As, bs, x0=jacobi_x0(diag, bs), proj=proj, config=cfg)
+    torch.cuda.synchronize()
+    wall_ref = time.perf_counter() - t0
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = run_scenario_sharded(As, bs, diag, proj, cfg, bmesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, counts = gemv.LAUNCHES, dict(COLLECTIVES)
+    require(launches > 0, "the scenario-sharded mode launched no GEMV kernel")
+    require(not any(counts.values()), f"the scenario-sharded solve made collectives {counts}")
+    require(not any(symv.LAUNCHES.values()), "the scenario-sharded mode launched a symv kernel")
+    require(torch.equal(r.x, r_ref.x) and torch.equal(r.matvecs, r_ref.matvecs),
+            "scenario sharded: lanes differ from solve_batched on the same inputs")
+    res = check_mode("scenario sharded", r, As, bs, x_uncon)
+    mv = r.matvecs.float()
+    print(f"scenario sharded (o): B={B_ITER}, one call {wall:.4f} s against solve_batched's "
+          f"{wall_ref:.4f} s, every lane bitwise solve_batched's (x and matvecs), p50 matvecs "
+          f"{float(mv.median()):.1f}, max {int(mv.max())}, audited max residual {res:.3e}, "
+          f"GEMV launches {launches}, collectives {counts}")
+    gemv_launches += launches
+    del As, bs, x_uncon, diag, r, r_ref
+    torch.cuda.empty_cache()
+
+    for row in scaling_probe([1]):
+        print(f"scaling probe: {json.dumps(row)}")
+    dist.destroy_process_group()
+    print(f"distributed: (m), (n), (o) and the probe {time.perf_counter() - t_dist:.1f} s")
 
     # ``launches`` is each entry's count over the main path's modes: the
     # packed mode's for batched_symv_packed, mode (l)'s for symv_packed, 0
@@ -1284,6 +1537,7 @@ def main():
            "replaces": f"ccqppy_tpu/ops/pallas_kernels.py:{line}",
            "launches": path_launches[name], **measured_symv[name]}
           for name, line in symv_lines.items())]}))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the start of main")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,8 @@ def _run(code_or_args, cwd):
 
 
 def test_import_pulls_in_no_jax():
-    proc = _run(["-c", "import sys, ccqppy_tpu_torch, ccqppy_tpu_torch.utils.convert; "
+    proc = _run(["-c", "import sys, ccqppy_tpu_torch, ccqppy_tpu_torch.utils.convert, "
+                       "ccqppy_tpu_torch.entry; "
                        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
                        "or m.startswith('ccqppy_tpu.') or m == 'ccqppy_tpu']; "
                        "assert not bad, bad"], ROOT)
