@@ -29,10 +29,18 @@ versions on CPU tensors.
                                    distributed layer on ``torch.distributed``
                                    (scenario-sharded batches, row-sharded
                                    QPs, process groups and meshes).
-* ``ccqppy_tpu_torch.utils``    -- random QP ensembles, per-lane RNG keys
-                                   (``rng``), guarded timing, and
-                                   conversion of problems, sets and configs
-                                   from the JAX package.
+* ``ccqppy_tpu_torch.utils``    -- the analytical oracle problems
+                                   (``problems``), random QP ensembles,
+                                   per-lane RNG keys (``rng``), guarded
+                                   timing and the random-ensemble benchmark
+                                   harness (``benchmark``), diagnostics
+                                   (``diagnostics``: timing, residual
+                                   traces, profiling, result checks),
+                                   plotting, and conversion of problems,
+                                   sets and configs from the JAX package.
+* ``ccqppy_tpu_torch.compat``   -- the drop-in CCQPpy class API
+                                   (``CCQPSolver*``, ``*ProjOp``); import it
+                                   by name.
 
 Gradient convention: ``g = A x + b``.
 """

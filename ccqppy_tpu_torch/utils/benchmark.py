@@ -1,7 +1,9 @@
-"""Roofline-guarded timing of batched solves, and device-only kernel times.
+"""Roofline-guarded timing of batched solves, device-only kernel times, and
+the random-ensemble benchmark harness.
 
-Port of ``materialize``, ``TimedRun``, ``timed_run`` and
-``dense_sweep_bytes`` from ``ccqppy_tpu/utils/benchmark.py``.  PyTorch
+Port of ``ccqppy_tpu/utils/benchmark.py``: ``materialize``, ``TimedRun``,
+``timed_run``, ``dense_sweep_bytes``, and the harness ``BenchmarkResult``,
+``BenchmarkRandomCCQP``, ``default_families`` and ``disjoint_families``.  PyTorch
 launches CUDA work asynchronously, so the fence that closes a timed rep is
 ``torch.cuda.synchronize`` of every device the outputs live on; outputs
 are then copied to the host and checked outside the clock.
@@ -14,10 +16,17 @@ from __future__ import annotations
 import dataclasses
 import functools
 import gc
+import json
 import statistics
 import time
+from typing import Sequence
 
+import numpy as np
 import torch
+
+from ccqppy_tpu_torch.ops import projections as P
+from ccqppy_tpu_torch.utils.random_qp import random_qp_batch
+from ccqppy_tpu_torch.utils.rng import split_keys
 
 # H100 SXM device-memory peak (NVIDIA data sheet, 3.35 TB/s).  The guard
 # rejects walls implying more than ``margin x`` this rate -- a measurement
@@ -224,3 +233,207 @@ def device_ms(fn, reps=25, warmup=3):
         if collecting:
             gc.enable()
     return statistics.median(times)
+
+
+@dataclasses.dataclass
+class BenchmarkResult:
+    """The harness's four result tensors, each [S, F, N, T] (solvers,
+    projection families, sizes, trials)."""
+
+    solver_names: list
+    family_names: list
+    sizes: list
+    num_trials: int
+    residual: np.ndarray    # [S, F, N, T]
+    converged: np.ndarray
+    solve_time: np.ndarray  # seconds per problem (batch wall / T)
+    matvecs: np.ndarray
+
+    def to_json(self, path=None):
+        payload = {
+            "solvers": self.solver_names,
+            "families": self.family_names,
+            "sizes": list(map(int, self.sizes)),
+            "num_trials": self.num_trials,
+            "residual": self.residual.tolist(),
+            "converged": self.converged.tolist(),
+            "solve_time": self.solve_time.tolist(),
+            "matvecs": self.matvecs.tolist(),
+        }
+        text = json.dumps(payload)
+        if path:
+            with open(path, "w") as f:
+                f.write(text)
+        return text
+
+    def summary(self):
+        lines = []
+        for i, s in enumerate(self.solver_names):
+            for j, f in enumerate(self.family_names):
+                for k, n in enumerate(self.sizes):
+                    lines.append(
+                        f"{s:10s} {f:12s} n={n:<6d} "
+                        f"conv={self.converged[i, j, k].mean():5.1%} "
+                        f"mv={self.matvecs[i, j, k].mean():8.1f} "
+                        f"t={self.solve_time[i, j, k].mean() * 1e3:8.3f} ms")
+        return "\n".join(lines)
+
+    def plot(self, metric="matvecs", **kw):
+        from ccqppy_tpu_torch.utils.plotting import plot_benchmark_metric
+        data = getattr(self, metric)
+        return plot_benchmark_metric(metric, data, self.solver_names,
+                                     self.family_names, self.sizes, **kw)
+
+
+class BenchmarkRandomCCQP:
+    """Batched random-Wishart CCQP benchmark: port of the JAX package's
+    harness, each (solver, family, size) cell one ``solve_batched`` over
+    all trials, timed by ``timed_run``.
+
+    Parameters
+    ----------
+    num_random_trials: problems per (solver, family, size) cell, solved as
+        one batch.
+    solvers: list of solver names (keys of ``models.SOLVERS``).
+    proj_factories: dict family-name -> callable(n, dtype) -> Projection,
+        whose parameters lie on ``device``.
+    sizes: problem dimensions.
+    device: where the ensembles are drawn and solved.
+
+    The ensembles come from a ``torch.Generator`` on ``device`` seeded with
+    ``seed`` (``utils.random_qp.random_qp_batch``, one draw per size) and
+    SPG's keys from ``utils.rng.split_keys(seed + 1, T)``: the same
+    distributions as the JAX harness's ``jax.random`` draws, other numbers.
+    """
+
+    def __init__(self, num_random_trials, solvers: Sequence[str],
+                 proj_factories: dict, sizes: Sequence[int],
+                 tol=1e-5, max_matvecs=5000, dtype=torch.float32,
+                 diag_boost=0.0, seed=0, *, device="cuda"):
+        self.num_trials = int(num_random_trials)
+        self.solver_names = list(solvers)
+        self.proj_factories = dict(proj_factories)
+        self.sizes = [int(s) for s in sizes]
+        self.tol = tol
+        self.max_matvecs = max_matvecs
+        self.dtype = dtype
+        self.diag_boost = diag_boost
+        self.seed = seed
+        self.device = torch.device(device)
+        self.result: BenchmarkResult | None = None
+
+    def run(self, verbose=True, check=None):
+        """Solve every cell; returns (and keeps) the ``BenchmarkResult``.
+        ``check(solver, family, n, result)``, if given, runs on the
+        ``SolveResult`` of every timed rep, outside the clock."""
+        # Imported here: models imports utils (for its keys), whose package
+        # imports this module.
+        from ccqppy_tpu_torch.models import SOLVERS
+        from ccqppy_tpu_torch.parallel.batch import solve_batched
+
+        S = len(self.solver_names)
+        F = len(self.proj_factories)
+        N = len(self.sizes)
+        T = self.num_trials
+        shape = (S, F, N, T)
+        residual = np.zeros(shape)
+        converged = np.zeros(shape, bool)
+        solve_time = np.zeros(shape)
+        matvecs = np.zeros(shape, np.int64)
+
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        for k, n in enumerate(self.sizes):
+            As, bs, _ = random_qp_batch(gen, T, n, self.dtype, self.diag_boost)
+            for j, (fam, factory) in enumerate(self.proj_factories.items()):
+                proj = factory(n, self.dtype)
+                buf = next(proj.buffers(), None)
+                if buf is not None and buf.device != As.device:
+                    raise ValueError(f"family {fam!r} built its set on {buf.device}, "
+                                     f"the ensemble is on {As.device}")
+                for i, sname in enumerate(self.solver_names):
+                    fn, cfg_cls = SOLVERS[sname]
+                    cfg = cfg_cls(tol=self.tol, max_matvecs=self.max_matvecs)
+                    keys = split_keys(self.seed + 1, T, self.device) if sname == "spg" else None
+                    # The warm run's matvec counts set a conservative
+                    # roofline floor: half the known dense operator
+                    # traffic; min of 2 reps.
+                    r = solve_batched(fn, As, bs, proj=proj, config=cfg, keys=keys)
+                    mv_total = int(r.matvecs.sum())
+                    implied = 0.5 * mv_total * n * n * 4
+                    cell_check = None if check is None else (
+                        lambda r_, s=sname, f=fam, n_=n: check(s, f, n_, r_))
+                    out = timed_run(
+                        lambda: solve_batched(fn, As, bs, proj=proj, config=cfg, keys=keys),
+                        reps=2, implied_bytes=implied, warmup=False, check=cell_check)
+                    r = out.result
+                    residual[i, j, k] = r.residual.double().cpu().numpy()
+                    converged[i, j, k] = r.converged.cpu().numpy()
+                    matvecs[i, j, k] = r.matvecs.cpu().numpy()
+                    solve_time[i, j, k] = out.wall_s / T
+                    if verbose:
+                        print(f"[bench] {sname:10s} {fam:12s} n={n:<6d} "
+                              f"conv={converged[i, j, k].mean():5.1%} "
+                              f"mv={matvecs[i, j, k].mean():8.1f} "
+                              f"{T / out.wall_s:10.1f} solves/s", flush=True)
+
+        self.result = BenchmarkResult(self.solver_names,
+                                      list(self.proj_factories), self.sizes,
+                                      T, residual, converged, solve_time,
+                                      matvecs)
+        return self.result
+
+    def process_results(self, save_prefix=None):
+        """Reference parity: plot wall-time (log y), matvecs (log y),
+        residual."""
+        if self.result is None:
+            raise RuntimeError("call run() first")
+        figs = []
+        for metric, logy in (("solve_time", True), ("matvecs", True),
+                             ("residual", False)):
+            path = f"{save_prefix}_{metric}.png" if save_prefix else None
+            figs.append(self.result.plot(metric, do_log_y=logy,
+                                         save_path=path))
+        return figs
+
+
+# Standard projection-family factories (the reference's entry points), each
+# building its set in ``dtype`` on ``device``.
+def default_families(dtype=torch.float32, device="cuda"):
+    def _box(n, dt):
+        return P.box(-torch.ones(n), torch.ones(n), dt, device)
+
+    def _lower(n, dt):
+        return P.lower_bound(-torch.ones(n), dt, device)
+
+    def _upper(n, dt):
+        return P.upper_bound(torch.ones(n), dt, device)
+
+    def _ball(n, dt):
+        return P.ball(1.0, dtype=dt, device=device)
+
+    def _identity(n, dt):
+        return P.identity()
+
+    return {"identity": _identity, "lower": _lower, "upper": _upper,
+            "ball": _ball, "box": _box}
+
+
+def disjoint_families(block_dim=3, dtype=torch.float32, device="cuda"):
+    """Blockwise (disjoint-union) families over ``block_dim``-sized blocks --
+    the reference's contact-mechanics pattern, including the Lorentz
+    cone."""
+    def _wrap(child_fn):
+        def f(n, dt):
+            if n % block_dim:
+                raise ValueError(f"n = {n} is not a multiple of the block size {block_dim}")
+            return P.blockwise(child_fn(dt), block_dim)
+        return f
+
+    return {
+        "dj_identity": _wrap(lambda dt: P.identity()),
+        "dj_lower": _wrap(lambda dt: P.lower_bound(-torch.ones(block_dim), dt, device)),
+        "dj_box": _wrap(lambda dt: P.box(-torch.ones(block_dim), torch.ones(block_dim),
+                                         dt, device)),
+        "dj_ball": _wrap(lambda dt: P.ball(1.0, dtype=dt, device=device)),
+        "dj_cone": _wrap(lambda dt: P.lorentz_cone(1.0, dtype=dt, device=device)),
+    }

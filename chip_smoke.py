@@ -100,6 +100,27 @@ and all-reduce is an NCCL call on device memory.
 Then ``scaling_probe([1])`` prints its row and the process group is
 destroyed.
 
+Last, (p) the reference API, the port's user-facing surface beside the
+functional one, on the card:
+
+* the eight ``compat.CCQPSolver*`` classes on the six oracle problems of
+  ``utils.problems`` (the reference suite's five and the README's), in f64
+  at tol 1e-8 with a 10,000 budget as the reference's own tests run them,
+  each solution within 1e-5 of the exact one and each solve audited by
+  ``utils.diagnostics.check_result``; then the compat docstring's example,
+  ``CCQPSolverSPG(1e-10, 5000)`` with a ``BoxProjOp``.  f64 GEMV launches
+  are required;
+* ``check_result`` on the iterative mode's warm-up result (B=2048,
+  n=1000), its ensemble drawn again from the generator state it was drawn
+  from: ok and consistent;
+* ``utils.benchmark.BenchmarkRandomCCQP`` at the random-ensemble study's
+  widest size (64 trials, tol 1e-5, a 5000 budget, f32): pcg and bbpgd_f
+  over the five single-constraint families at n=512, mprgp_bb over the
+  disjoint Lorentz-cone family at n=513.  Every timed rep must leave a
+  feasible, finite x, every pcg cell converge on every lane, and f32 GEMV
+  launches are required.  The phase's GEMV launches are printed on a line
+  of their own; the JSON line's counts stay the main path's.
+
 Steps: build the CUDA kernels from ``ccqppy_tpu_torch/csrc``; read the
 launch floor (the device time of an in-place add on a one-element
 tensor); hold each kernel's entry points against their plain PyTorch
@@ -134,9 +155,11 @@ import statistics
 import subprocess
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from ccqppy_tpu_torch import compat
 from ccqppy_tpu_torch.models import pcg, spg
 from ccqppy_tpu_torch.models.apgd import APGDConfig, APGDSCConfig
 from ccqppy_tpu_torch.models.base import pg_residual
@@ -156,7 +179,11 @@ from ccqppy_tpu_torch.parallel import (init_distributed, make_batch_mesh, make_m
                                        solve_batched_sharded, solve_sharded,
                                        solve_sharded_blocksparse)
 from ccqppy_tpu_torch.parallel.distributed import COLLECTIVES, free_port, mesh_axis
-from ccqppy_tpu_torch.utils.benchmark import dense_sweep_bytes, device_ms, timed_run
+from ccqppy_tpu_torch.utils import problems
+from ccqppy_tpu_torch.utils.benchmark import (BenchmarkRandomCCQP, default_families,
+                                              dense_sweep_bytes, device_ms,
+                                              disjoint_families, timed_run)
+from ccqppy_tpu_torch.utils.diagnostics import check_result
 from ccqppy_tpu_torch.utils.random_qp import block_tridiag_qp, random_qp_batch
 from ccqppy_tpu_torch.utils.rng import split_keys
 
@@ -226,6 +253,16 @@ N_SHARDED = 16_384     # (n): one dense QP of 1.07 GB f32
 SWEEPS_SHARDED = 10    # (n): least sweeps of one call, for the timing guard
 AUDIT_ROWS = 2048      # (n): rows of A a chunk of the f64 audit
 COLLECTIVE_REPS = 200  # calls in a row of each collective timed after (m)
+# (p) the reference API: the reference's own tests run the compat solvers in
+# f64 at tol 1e-8 with a 10,000 budget (PGD at step 0.1) and hold every
+# solution to 1e-5 of the exact one.
+ORACLE_TOL, ORACLE_BUDGET, ORACLE_ERR = 1e-8, 10_000, 1e-5
+# The random-ensemble study at its widest size (benchmarks/
+# benchmark_random_ccqp.py): 64 trials, n = 512 (513 for the 3-blocks of the
+# disjoint families), tol 1e-5, a 5000 budget, diag_boost 1, f32.
+HARNESS_T, HARNESS_N, HARNESS_N_DJ = 64, 512, 513
+HARNESS_TOL, HARNESS_BUDGET = 1e-5, 5000
+HARNESS_SOLVERS, HARNESS_SOLVERS_DJ = ("pcg", "bbpgd_f"), ("mprgp_bb",)
 
 REPS = 3           # timed reps per mode
 KERNEL_REPS = 25   # timed launches per kernel measurement
@@ -397,6 +434,102 @@ def run_scenario_sharded(As, b, diag, proj, cfg, mesh):
     from the Jacobi start."""
     return solve_batched_sharded("pcg", As, b, mesh, x0=jacobi_x0(diag, b), proj=proj,
                                  config=cfg)
+
+
+def compat_solvers(device):
+    """The eight drop-in solver classes as the reference's tests build them."""
+    args = (ORACLE_TOL, ORACLE_BUDGET)
+    return [compat.CCQPSolverPGD(*args, 0.1, device=device),
+            *(getattr(compat, name)(*args, device=device)
+              for name in ("CCQPSolverAPGD", "CCQPSolverAPGDAntiRelaxation", "CCQPSolverBBPGD",
+                           "CCQPSolverBBPGDf", "CCQPSolverSPG", "CCQPSolverMPRGP",
+                           "CCQPSolverMPRGPBB"))]
+
+
+def run_oracle(device):
+    """(p) 1: the eight compat solvers on the six oracle problems (the five
+    of the reference suite and the README's), f64 at tol 1e-8, each solve
+    audited by ``check_result``; then the compat docstring's example,
+    ``CCQPSolverSPG(1e-10, 5000)`` with a ``BoxProjOp`` on the README
+    problem.  Every solution must lie within ORACLE_ERR of the exact one.
+    Returns one row a solve: (problem, solver, matvecs, |x - x*|, residual,
+    solution_time)."""
+    saved = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        rows = []
+        for p in problems.all_problems(torch.float64, device) + [
+                problems.readme_problem(torch.float64, device)]:
+            x_exact = p.exact_solution[0].cpu().numpy()
+            for solver in compat_solvers(device):
+                solver.solve(p.A[0], p.b[0], convex_proj_op=p.proj)
+                err = float(np.abs(solver.solution - x_exact).max())
+                require(solver.solution_converged and err < ORACLE_ERR,
+                        f"oracle {p.name} / {solver.name}: converged "
+                        f"{solver.solution_converged}, max |x - x*| {err}")
+                check_result(solver.result, proj=p.proj, A=p.A, b=p.b)
+                rows.append((p.name, solver.name, solver.solution_num_matrix_vector_multiplications,
+                             err, solver.solution_residual, solver.solution_time))
+        p = problems.readme_problem(torch.float64, device)
+        op = compat.BoxProjOp(3, [-2.0, -2.0, -4.0], [2.0, 2.0, 5.0], device=device)
+        solver = compat.CCQPSolverSPG(1e-10, 5000, device=device).solve(
+            p.A[0].cpu().numpy(), p.b[0].cpu().numpy(), convex_proj_op=op)
+        err = float(np.abs(solver.solution - p.exact_solution[0].cpu().numpy()).max())
+        require(solver.solution_converged and err < ORACLE_ERR,
+                f"compat example: converged {solver.solution_converged}, max |x - x*| {err}")
+        check_result(solver.result, proj=op.core, A=p.A, b=p.b)
+        rows.append(("compat example", solver.name, solver.solution_num_matrix_vector_multiplications,
+                     err, solver.solution_residual, solver.solution_time))
+    finally:
+        torch.set_default_dtype(saved)
+    return rows
+
+
+def check_full_width(r, As, bs, proj):
+    """(p) 2: ``check_result`` on a result of the iterative mode with its
+    projection, A and b; it must be ok and consistent.  Returns the
+    report."""
+    rep = check_result(r, proj=proj, A=As, b=bs, raise_on_fail=False)
+    require(rep["ok"] and rep["residual_consistent"], f"check_result at full width: {rep}")
+    return rep
+
+
+def harness_families(device):
+    """(p) 3's families: the five single-constraint ones at HARNESS_N, and
+    the disjoint Lorentz-cone one at HARNESS_N_DJ."""
+    return (default_families(torch.float32, device),
+            {"dj_cone": disjoint_families(3, torch.float32, device)["dj_cone"]})
+
+
+def run_harness(device):
+    """(p) 3: one ``BenchmarkRandomCCQP.run()`` of HARNESS_SOLVERS over the
+    single-constraint families at HARNESS_N and one of HARNESS_SOLVERS_DJ
+    over dj_cone at HARNESS_N_DJ, HARNESS_T trials a cell.  Every timed rep
+    of every cell must leave a feasible, finite x; every pcg cell must
+    converge on every lane; each result's ``to_json`` must round-trip.
+    Returns the two results."""
+    results = []
+    for solvers, fams, n in zip((HARNESS_SOLVERS, HARNESS_SOLVERS_DJ), harness_families(device),
+                                (HARNESS_N, HARNESS_N_DJ)):
+        def check(sname, fam, n_, r, fams=fams):
+            proj = fams[fam](n_, torch.float32)
+            require(bool(torch.isfinite(r.x).all()) and bool(proj.contains(r.x).all()),
+                    f"harness {sname} / {fam} n={n_}: an infeasible or non-finite x")
+        bench = BenchmarkRandomCCQP(HARNESS_T, solvers, fams, [n], tol=HARNESS_TOL,
+                                    max_matvecs=HARNESS_BUDGET, dtype=torch.float32,
+                                    diag_boost=1.0, seed=SEED, device=device)
+        res = bench.run(verbose=False, check=check)
+        back = json.loads(res.to_json())
+        require(back["families"] == list(fams) and back["sizes"] == [n]
+                and np.array_equal(np.asarray(back["matvecs"]), res.matvecs)
+                and np.array_equal(np.asarray(back["converged"]), res.converged),
+                "harness: to_json does not round-trip")
+        if "pcg" in solvers:
+            conv = res.converged[solvers.index("pcg")]
+            require(bool(conv.all()), f"harness: pcg converged {conv.mean(axis=-1).tolist()} "
+                                      f"over {list(fams)}")
+        results.append(res)
+    return results
 
 
 def audit_rows(A, b, x, chunk=AUDIT_ROWS):
@@ -1017,6 +1150,7 @@ def main():
     cfg = PCGConfig(tol=TOL, max_matvecs=BUDGET)
 
     # ---- iterative mode ----------------------------------------------------
+    iter_state = gen.get_state()   # (p) draws this ensemble again for its audit
     As, bs, x_uncon = random_qp_batch(gen, B_ITER, N, torch.float32,
                                       diag_boost=1.0, chunk=256)
     diag = As.diagonal(dim1=-2, dim2=-1)
@@ -1026,6 +1160,7 @@ def main():
                           lambda: gemv.LAUNCHES)
     gemv_launches = gemv.LAUNCHES
     require(gemv_launches > 0, "the iterative mode launched no GEMV kernel")
+    r_iter = r_dense   # its warm-up call on the unperturbed b, audited in (p)
     del diag
 
     # ---- packed mode: the same ensemble through the symv kernel -------------
@@ -1518,6 +1653,59 @@ def main():
         print(f"scaling probe: {json.dumps(row)}")
     dist.destroy_process_group()
     print(f"distributed: (m), (n), (o) and the probe {time.perf_counter() - t_dist:.1f} s")
+
+    # ---- (p) the reference API: oracle suite, diagnostics, harness ---------
+    t_p = t0 = time.perf_counter()
+    zero_counts()
+    rows = run_oracle(dev)
+    launches = (gemv.LAUNCHES, gemv.LAUNCHES_F64)
+    require(launches[1] > 0, "the oracle suite launched no f64 GEMV")
+    require(not any(symv.LAUNCHES.values()), "the oracle suite launched a symv kernel")
+    mv = [r[2] for r in rows]
+    print(f"reference API (p) oracle: {len(rows)} compat solves (8 solvers x 6 problems, f64, "
+          f"tol {ORACLE_TOL}, and the compat example SPG at 1e-10), every one converged and "
+          f"audited by check_result; max |x - x*| {max(r[3] for r in rows):.3e}, max residual "
+          f"{max(r[4] for r in rows):.3e}, matvecs {sum(mv)} (max {max(mv)}), solution_time "
+          f"sum {sum(r[5] for r in rows):.4f} s; {time.perf_counter() - t0:.2f} s")
+    for name in dict.fromkeys(r[1] for r in rows):
+        sel = [r for r in rows if r[1] == name]
+        print(f"reference API (p) oracle {name}: matvecs {[r[2] for r in sel]}, solution_time "
+              f"{sum(r[5] for r in sel) / sum(r[2] for r in sel) * 1e3:.4f} ms a matvec")
+    print(f"reference API (p) oracle: GEMV launches {launches[0]} ({launches[1]} f64)")
+
+    t0 = time.perf_counter()
+    gen_iter = torch.Generator(device=dev)
+    gen_iter.set_state(iter_state)
+    As, bs, _ = random_qp_batch(gen_iter, B_ITER, N, torch.float32, diag_boost=1.0, chunk=256)
+    zero_counts()
+    rep = check_full_width(r_iter, As, bs, proj)
+    require(gemv.LAUNCHES == 0, "check_result launched the GEMV kernel")
+    print(f"reference API (p) check_result on the iterative mode's warm-up call (B={B_ITER}, "
+          f"n={N}): ok {rep['ok']}, feasible {rep['feasible']}, residual_consistent "
+          f"{rep['residual_consistent']}, residual_rel_err {rep['residual_rel_err']:.3e}; "
+          f"{time.perf_counter() - t0:.2f} s with the ensemble's draw")
+    del As, bs, r_iter
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    zero_counts()
+    results = run_harness(dev)
+    launches = (gemv.LAUNCHES, f32_launches())
+    require(launches[1] > 0, "the harness launched no f32 GEMV")
+    require(not any(symv.LAUNCHES.values()), "the harness launched a symv kernel")
+    for res in results:
+        for line in res.summary().splitlines():
+            print(f"reference API (p) harness: {line}")
+        for i, sname in enumerate(res.solver_names):
+            for j, fam in enumerate(res.family_names):
+                print(f"reference API (p) harness: {sname} {fam} n={res.sizes[0]} solves/s "
+                      f"{1 / res.solve_time[i, j, 0].mean():.1f}, convergence "
+                      f"{res.converged[i, j, 0].mean():.4f}, p50 matvecs "
+                      f"{np.median(res.matvecs[i, j, 0]):.1f}, max residual "
+                      f"{res.residual[i, j, 0].max():.3e}")
+    print(f"reference API (p) harness: GEMV launches {launches[0]} ({launches[1]} f32); "
+          f"{time.perf_counter() - t0:.2f} s")
+    print(f"reference API (p): {time.perf_counter() - t_p:.1f} s")
 
     # ``launches`` is each entry's count over the main path's modes: the
     # packed mode's for batched_symv_packed, mode (l)'s for symv_packed, 0

@@ -24,7 +24,12 @@ def _run(code_or_args, cwd):
 
 def test_import_pulls_in_no_jax():
     proc = _run(["-c", "import sys, ccqppy_tpu_torch, ccqppy_tpu_torch.utils.convert, "
-                       "ccqppy_tpu_torch.entry; "
+                       "ccqppy_tpu_torch.entry, ccqppy_tpu_torch.compat, "
+                       "ccqppy_tpu_torch.utils.problems, ccqppy_tpu_torch.utils.diagnostics, "
+                       "ccqppy_tpu_torch.utils.plotting; "
+                       "from ccqppy_tpu_torch.utils import (BenchmarkRandomCCQP, BenchmarkResult, "
+                       "default_families, disjoint_families); "
+                       "assert 'matplotlib' not in sys.modules; "
                        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
                        "or m.startswith('ccqppy_tpu.') or m == 'ccqppy_tpu']; "
                        "assert not bad, bad"], ROOT)

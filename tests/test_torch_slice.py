@@ -6,6 +6,7 @@ included), the README's batched quick start (bbpgd_f mode),
 (APGD-AR on the cone, classic APGD on the box) wire it, in f64 on the CPU,
 per lane.
 """
+import dataclasses
 import importlib.util
 from pathlib import Path
 
@@ -352,3 +353,58 @@ def _assert_cone_lanes_match(rj, rt):
     np.testing.assert_allclose(rt.x.numpy(), np.asarray(rj.x), rtol=0, atol=1e-8)
     np.testing.assert_allclose(rt.residual.numpy(), np.asarray(rj.residual),
                                rtol=0, atol=1e-8)
+
+
+def test_reference_api_oracle_wiring():
+    """(p) 1 on the CPU: the eight compat solvers on the six oracle problems
+    in f64 and the compat docstring's example, each within 1e-5 of x* and
+    audited by check_result; the default dtype is restored."""
+    cs = _chip_smoke()
+    saved = torch.get_default_dtype()
+    rows = cs.run_oracle("cpu")
+    assert torch.get_default_dtype() == saved
+    assert len(rows) == 8 * 6 + 1
+    assert {r[1] for r in rows} == {s.name for s in cs.compat_solvers("cpu")}
+    assert max(r[3] for r in rows) < cs.ORACLE_ERR
+    assert rows[-1][:2] == ("compat example", "SPG-QP") and rows[-1][4] < 1e-10
+
+
+def test_reference_api_full_width_check_wiring():
+    """(p) 2 on the CPU: check_result on the iterative mode's result gives
+    the JAX package's report on the JAX package's result."""
+    from ccqppy_tpu.utils.diagnostics import check_result as jax_check_result
+
+    cs = _chip_smoke()
+    A, b, jproj, jcfg, At, bt, proj, cfg = _setup(48, cs)
+    Aj, bj = jnp.asarray(A), jnp.asarray(b)
+    diag = jnp.diagonal(Aj, axis1=-2, axis2=-1)
+    rj = jax_fused_compact("pcg", Aj, bj, cs.PHASE1, x0=jnp.clip(-bj / diag, -1.0, 1.0),
+                           proj=jproj, config=jcfg, bucket=cs.BUCKET, host_fallback=False)
+    rt = cs.run_iterative(At, bt, At.diagonal(dim1=-2, dim2=-1), proj, cfg)
+    rep = cs.check_full_width(rt, At, bt, proj)
+    rep_j = jax_check_result(rj, proj=jproj, A=Aj, b=bj)
+    assert list(rep) == list(rep_j)
+    assert {k: v for k, v in rep.items() if k != "residual_rel_err"} == \
+        {k: v for k, v in rep_j.items() if k != "residual_rel_err"}
+    np.testing.assert_allclose(rep["residual_rel_err"], rep_j["residual_rel_err"], atol=1e-6)
+    # An x outside the box fails the phase.
+    with pytest.raises(RuntimeError, match="full width"):
+        cs.check_full_width(dataclasses.replace(rt, x=rt.x + 10.0), At, bt, proj)
+
+
+def test_reference_api_harness_wiring(monkeypatch):
+    """(p) 3 on the CPU at 4 trials, n = 24 and a 500 budget (bbpgd_f's
+    frozen f32 lanes would spend 5000): the solvers and families of the
+    phase, pcg converged on every lane of every family, the results
+    round-trip through to_json."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "HARNESS_T", 4)
+    monkeypatch.setattr(cs, "HARNESS_BUDGET", 500)
+    monkeypatch.setattr(cs, "HARNESS_N", 24)
+    monkeypatch.setattr(cs, "HARNESS_N_DJ", 24)
+    single, dj = cs.run_harness("cpu")
+    assert single.solver_names == ["pcg", "bbpgd_f"] and single.sizes == [24]
+    assert single.family_names == ["identity", "lower", "upper", "ball", "box"]
+    assert dj.solver_names == ["mprgp_bb"] and dj.family_names == ["dj_cone"]
+    assert single.converged.shape == (2, 5, 1, 4) and bool(single.converged[0].all())
+    assert np.isfinite(single.residual).all() and np.isfinite(dj.residual).all()
