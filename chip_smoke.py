@@ -121,6 +121,25 @@ functional one, on the card:
   launches are required.  The phase's GEMV launches are printed on a line
   of their own; the JSON line's counts stay the main path's.
 
+Last, (q) the port's headline entry and its six single-card studies
+(``ccqppy_tpu_torch/bench.py``, ``ccqppy_tpu_torch/benchmarks/``), after
+the earlier stacks are freed.  First the GEMV at the studies' shapes no
+earlier phase launched, against its plain version and one PyTorch call
+(``torch.mv`` at (1, 9999) f32, also bitwise at storage offsets;
+``torch.bmm`` at (256, 256) f32 and f64 and, ``out_dtype=float32``, bf16
+(1024, 1000)), 10 interleaved rounds.  Then seven paths, each with its
+GEMV launches by instance counted from 0 and required: ``bench.main`` at
+full width with both pipelined depths cut to 2 (its line's keys,
+convergence 1.0 and its audit); the warm-start study in full (warm takes
+fewer matvecs than cold); the mixed-segment set and ensemble at full
+width, one ``apgd_sc`` and one MPRGP-BB call (the study's 3 timed calls,
+pipelined depth 10 and MPRGP-BB reps cut); the large-cone study in full;
+the ensemble study cut from 16,384 problems to 2,048 (2 chunks); the
+ill-conditioned study cut to boost 0.02 and refresh 16 (bf16 launches
+required); the f64 probe in full (f64 launches required).  Every row must
+converge with an f64 audit within tol x 1.05.  The GEMV entry of the JSON
+line gains ``shapes_q`` and ``launches_q``.
+
 Steps: build the CUDA kernels from ``ccqppy_tpu_torch/csrc``; read the
 launch floor (the device time of an in-place add on a one-element
 tensor); hold each kernel's entry points against their plain PyTorch
@@ -149,6 +168,7 @@ printed beside it.  Mode walls are host clocks around synchronised calls.
 
 Run:  python3 chip_smoke.py      (needs one CUDA GPU, nvcc for sm_90a)
 """
+import gc
 import json
 import os
 import statistics
@@ -159,7 +179,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ccqppy_tpu_torch import compat
+from ccqppy_tpu_torch import bench, compat
+from ccqppy_tpu_torch.benchmarks import (benchmark_ensemble_16k, benchmark_f64_probe,
+                                         benchmark_illcond, benchmark_large_cone,
+                                         benchmark_mixed_segment, benchmark_warmstart_sequence)
 from ccqppy_tpu_torch.models import pcg, spg
 from ccqppy_tpu_torch.models.apgd import APGDConfig, APGDSCConfig
 from ccqppy_tpu_torch.models.base import pg_residual
@@ -263,6 +286,17 @@ ORACLE_TOL, ORACLE_BUDGET, ORACLE_ERR = 1e-8, 10_000, 1e-5
 HARNESS_T, HARNESS_N, HARNESS_N_DJ = 64, 512, 513
 HARNESS_TOL, HARNESS_BUDGET = 1e-5, 5000
 HARNESS_SOLVERS, HARNESS_SOLVERS_DJ = ("pcg", "bbpgd_f"), ("mprgp_bb",)
+
+# (q) the port's bench.py and the six single-card studies, at full width;
+# depth cut only where named here (the phase's docstring lists every cut).
+Q_PIPELINE = 2          # bench: both pipelined depths, from 5 and 8
+Q_TOTAL = 2048          # the ensemble study: 2 chunks of 1024, from 16,384
+Q_BOOSTS, Q_REFRESH = (0.02,), (16,)   # the ill-conditioned study: 1 of 3 families, 1 of 2
+# (B, n, A's dtype) of the GEMV at the studies' shapes no earlier phase
+# launched: the large cone's single QP, the f64 probe in f32 and f64, and
+# the ill-conditioned study's bf16 sweeps.
+Q_GEMV_SHAPES = ((1, 9999, torch.float32), (256, 256, torch.float32),
+                 (256, 256, torch.float64), (1024, 1000, torch.bfloat16))
 
 REPS = 3           # timed reps per mode
 KERNEL_REPS = 25   # timed launches per kernel measurement
@@ -1113,6 +1147,169 @@ def run_mode(name, run, As, bs, x_uncon, gen, sweep_bytes, sweeps_floor, count,
           f"{launches}")
     return r, launches
 
+def q_gemv_shapes(gen, dev):
+    """(q): the GEMV at Q_GEMV_SHAPES against its plain version (f32 against
+    the f64 plain GEMV, rel err <= GEMV_F32_TOL; f64 against the plain f64
+    version, <= GEMV_F64_TOL; bf16 against the plain bf16 version, <=
+    GEMV_BF16_PLAIN_TOL), at (1, 9999) also bitwise at the storage offsets
+    GEMV_OFFSETS; then PAIR_ROUNDS interleaved rounds of the kernel, its
+    plain version and one PyTorch call for the same function (``torch.mv``
+    at B=1, else ``torch.bmm``; for bf16 A ``torch.bmm(out_dtype=float32)``
+    with x rounded to bf16 outside the clock), each ``device_ms``, the
+    library call's result held to the same tolerance.  One record a shape:
+    the medians, the bound, and the min / median / max of kernel / library."""
+    recs = []
+    for B, n, dtype in Q_GEMV_SHAPES:
+        xdtype = torch.float64 if dtype == torch.float64 else torch.float32
+        A = torch.randn((B, n, n), generator=gen, device=dev, dtype=xdtype).to(dtype)
+        x = torch.randn((B, n), generator=gen, device=dev, dtype=xdtype)
+        name = f"gemv {str(dtype).removeprefix('torch.')} B={B} n={n}"
+        y = gemv.batched_gemv(A, x)
+        if dtype == torch.float32:
+            ref, tol = gemv_f64(A, x), GEMV_F32_TOL
+        else:
+            ref = gemv.batched_gemv_reference(A, x).double()
+            tol = GEMV_F64_TOL if dtype == torch.float64 else GEMV_BF16_PLAIN_TOL
+        err = rel_err(y, ref)
+        require(err <= tol, f"(q) {name}: rel err {err} against the plain version")
+        if B == 1:
+            check_offsets(f"(q) {name}", A, x, y)
+            lib_name, lib = "torch.mv", (lambda: torch.mv(A[0], x[0]))
+        elif dtype == torch.bfloat16:
+            xb = x.to(torch.bfloat16).unsqueeze(-1)
+            lib_name = "torch.bmm(out_dtype=float32)"
+            lib = (lambda: torch.bmm(A, xb, out_dtype=torch.float32))
+        else:
+            lib_name, lib = "torch.bmm", (lambda: torch.bmm(A, x.unsqueeze(-1)))
+        lib_err = rel_err(lib().reshape(B, n), ref)
+        require(lib_err <= tol, f"(q) {name}: {lib_name} is not the same function (rel err "
+                                f"{lib_err})")
+        kern, plain, libt = [], [], []
+        for _ in range(PAIR_ROUNDS):
+            kern.append(device_ms(lambda: gemv.batched_gemv(A, x)))
+            plain.append(device_ms(lambda: gemv.batched_gemv_reference(A, x)))
+            libt.append(device_ms(lib))
+        ratios = sorted(k / q for k, q in zip(kern, libt))
+        ms, bound_ms, bound_by = statistics.median(kern), *gemv_bound(A, x)
+        rec = {"B": B, "n": n, "dtype": str(dtype).removeprefix("torch."),
+               "rounds": PAIR_ROUNDS, "max_abs_err": float((y.double() - ref).abs().max()),
+               "max_rel_err": err, "ms": ms, "plain_ms": statistics.median(plain),
+               "library": lib_name, "library_ms": statistics.median(libt),
+               "library_max_rel_err": lib_err, "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ratio_min": ratios[0], "library_ratio_median": statistics.median(ratios),
+               "library_ratio_max": ratios[-1]}
+        print(f"(q) {name}: rel err {err:.3e} ({lib_name} {lib_err:.3e}); {PAIR_ROUNDS} rounds: "
+              f"kernel {ms:.4f} ms, plain {rec['plain_ms']:.4f} ms, {lib_name} "
+              f"{rec['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{bound_ms / ms:.3f} of the kernel); kernel / {lib_name} min {ratios[0]:.4f}, "
+              f"median {rec['library_ratio_median']:.4f}, max {ratios[-1]:.4f}")
+        recs.append(rec)
+        del A, x, y, ref, lib
+        torch.cuda.empty_cache()
+    return recs
+
+
+def q_path(name, fn, kinds):
+    """One path of (q), its GEMV launches by instance counted from 0 just
+    before it and read just after: every instance of ``kinds`` must have
+    launched, no symv may.  Returns the launches and the path's seconds."""
+    zero_counts()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {"f32": f32_launches(), "bf16": gemv.LAUNCHES_BF16, "f64": gemv.LAUNCHES_F64}
+    for kind in kinds:
+        require(launches[kind] > 0, f"(q) {name}: no {kind} GEMV launch")
+    require(not any(symv.LAUNCHES.values()), f"(q) {name} launched a symv kernel")
+    print(f"(q) {name}: {secs:.2f} s, GEMV launches {launches}")
+    return {**launches, "seconds": secs}
+
+
+def q_bench(dev):
+    """``python -m ccqppy_tpu_torch.bench`` at full width, its pipelined
+    depths cut to Q_PIPELINE."""
+    r = bench.main(pipeline=Q_PIPELINE, pipe_direct=Q_PIPELINE, device=dev)
+    require(set(r) == {*bench.KEYS, "card"}, f"(q) bench: keys {sorted(r)}")
+    require(r["convergence_rate"] == 1.0 and r["true_residual_max"] <= TOL * 1.05,
+            f"(q) bench: convergence {r['convergence_rate']}, audit {r['true_residual_max']}")
+    require(torch.cuda.get_device_name(0) in r["metric"], "(q) bench: the metric names no card")
+
+
+def q_warmstart(dev):
+    """The warm-start study in full: both variants converge every step and
+    audit under tol, and warm takes fewer matvecs than cold."""
+    p = benchmark_warmstart_sequence.main(device=dev)
+    for v in ("cold", "warm"):
+        require(p[v]["all_converged"] and p[v]["true_residual_last_step"] <= TOL * 1.05,
+                f"(q) warm start {v}: {p[v]}")
+    require(p["warm"]["matvecs_total"] < p["cold"]["matvecs_total"],
+            f"(q) warm start: warm {p['warm']['matvecs_total']} matvecs, cold "
+            f"{p['cold']['matvecs_total']}")
+
+
+def q_segment(dev):
+    """The mixed-segment study's set and ensemble at full width: one call of
+    ``apgd_sc`` (after the spectral prep) and one of fused MPRGP-BB, each
+    converged and audited."""
+    m = benchmark_mixed_segment
+    gen = torch.Generator(device=dev).manual_seed(m.SEED)
+    As, bs, _ = random_qp_batch(gen, m.BATCH, m.N, torch.float32, diag_boost=1.0, chunk=256)
+    diag = As.diagonal(dim1=-2, dim2=-1)
+    proj, proj64 = m.segment_set(m.N, device=dev), m.segment_set(m.N, torch.float64, dev)
+    sop = SpectralDense(As, *estimate_spectral_bounds(As, iters=m.SPECTRAL_ITERS))
+    for name, run in (
+            ("apgd_sc", lambda: m.run_apgd_sc(sop, bs, diag, proj,
+                                              APGDSCConfig(tol=m.TOL, max_matvecs=m.BUDGET))),
+            ("mprgp_bb", lambda: m.run_mprgp(As, bs, diag, proj, MPRGPBBConfig(
+                tol=m.TOL, max_matvecs=m.BUDGET, fused=True)))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = check_mode(f"(q) segment {name}", r, As, bs, tol=m.TOL, proj64=proj64)
+        mv = r.matvecs.float()
+        print(f"(q) segment {name}: B={m.BATCH} n={m.N}, one call {wall:.4f} s, p50 matvecs "
+              f"{float(mv.median()):.1f}, max {int(mv.max())}, audited max residual {res:.3e}")
+
+
+def q_large_cone(dev):
+    """The large-cone study in full: every solver converges and audits under
+    tol; pcg's row repeats mprgp_bb's matvecs."""
+    p = benchmark_large_cone.main(device=dev)
+    rows = {r["solver"]: r for r in p["rows"]}
+    for name, r in rows.items():
+        require(r["converged"] and r["true_residual"] <= TOL_CONE * 1.05,
+                f"(q) large cone {name}: {r}")
+    require(rows["pcg"]["matvecs"] == rows["mprgp_bb"]["matvecs"],
+            "(q) large cone: pcg did not take MPRGP-BB's path")
+
+
+def q_ensemble(dev):
+    """The ensemble study cut to Q_TOTAL problems: every lane converges."""
+    p = benchmark_ensemble_16k.main(total=Q_TOTAL, device=dev)
+    require(p["convergence_rate"] == 1.0 and p["fenced_true_residual_max"] <= TOL * 1.05,
+            f"(q) ensemble: {p}")
+
+
+def q_illcond(dev):
+    """The ill-conditioned study cut to Q_BOOSTS and Q_REFRESH: plain PCG and
+    rr-PCG converge and audit under tol."""
+    p = benchmark_illcond.main(boosts=Q_BOOSTS, refresh=Q_REFRESH, device=dev)
+    for row in p["rows"]:
+        for r in (row["plain_f32"], *row["rr"]):
+            require(r["converged"] == 1.0 and r["true_res_max"] <= TOL * 1.05,
+                    f"(q) ill-conditioned boost {row['diag_boost']}: {r}")
+
+
+def q_f64_probe(dev):
+    """The f64 probe in full: every row converges and audits under its tol."""
+    p = benchmark_f64_probe.main(device=dev)
+    for r in p["rows"]:
+        require(r["converged"] == 1.0 and r["true_residual_max"] <= r["tol"] * 1.05,
+                f"(q) f64 probe: {r}")
+
 
 def main():
     t_start = time.perf_counter()
@@ -1292,7 +1489,7 @@ def main():
     print("box apgd: backtracking trials in the warm-up call: %d over all lanes (max %d "
           "a lane), %d batched trial launches" % apgd_trials(r_apgd, launches))
     gemv_launches += gemv.LAUNCHES
-    del As, As16, bs, x_uncon, diag, r_apgd
+    del As, As16, bs, x_uncon, diag, r_apgd, rr_runs, op_rr   # rr_runs held 12.3 GB
     torch.cuda.empty_cache()
 
     # ---- direct serving mode -----------------------------------------------
@@ -1707,6 +1904,26 @@ def main():
           f"{time.perf_counter() - t0:.2f} s")
     print(f"reference API (p): {time.perf_counter() - t_p:.1f} s")
 
+    # ---- (q) bench.py and the six single-card studies ----------------------
+    t_q = time.perf_counter()
+    del results, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"(q): {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated at its start")
+    shapes_q = q_gemv_shapes(torch.Generator(device=dev).manual_seed(SEED + 4), dev)
+    launches_q = {}
+    for name, fn, kinds in (("bench", q_bench, ("f32",)),
+                            ("warm start", q_warmstart, ("f32",)),
+                            ("segment", q_segment, ("f32",)),
+                            ("large cone", q_large_cone, ("f32",)),
+                            ("ensemble", q_ensemble, ("f32",)),
+                            ("ill-conditioned", q_illcond, ("f32", "bf16")),
+                            ("f64 probe", q_f64_probe, ("f32", "f64"))):
+        launches_q[name] = q_path(name, lambda: fn(dev), kinds)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"(q): {time.perf_counter() - t_q:.1f} s")
+
     # ``launches`` is each entry's count over the main path's modes: the
     # packed mode's for batched_symv_packed, mode (l)'s for symv_packed, 0
     # for batched_symv, which no mode runs; ``kernel_phase_launches``
@@ -1720,7 +1937,7 @@ def main():
          "replaces": "ccqppy_tpu/ops/pallas_kernels.py:65",
          "launches": gemv_launches, "launches_bf16": gemv_launches_bf16,
          "launches_f64": gemv_launches_f64, **measured,
-         "n999": gemv_999},
+         "n999": gemv_999, "shapes_q": shapes_q, "launches_q": launches_q},
         *({"name": name, "route": "cuda", "source": symv_src,
            "replaces": f"ccqppy_tpu/ops/pallas_kernels.py:{line}",
            "launches": path_launches[name], **measured_symv[name]}

@@ -26,7 +26,11 @@ def test_import_pulls_in_no_jax():
     proc = _run(["-c", "import sys, ccqppy_tpu_torch, ccqppy_tpu_torch.utils.convert, "
                        "ccqppy_tpu_torch.entry, ccqppy_tpu_torch.compat, "
                        "ccqppy_tpu_torch.utils.problems, ccqppy_tpu_torch.utils.diagnostics, "
-                       "ccqppy_tpu_torch.utils.plotting; "
+                       "ccqppy_tpu_torch.utils.plotting, ccqppy_tpu_torch.bench, importlib, "
+                       "pkgutil, ccqppy_tpu_torch.benchmarks as studies; "
+                       "mods = [importlib.import_module('ccqppy_tpu_torch.benchmarks.' + m.name) "
+                       "for m in pkgutil.iter_modules(studies.__path__)]; "
+                       "assert len(mods) == 7, mods; "
                        "from ccqppy_tpu_torch.utils import (BenchmarkRandomCCQP, BenchmarkResult, "
                        "default_families, disjoint_families); "
                        "assert 'matplotlib' not in sys.modules; "
