@@ -41,9 +41,10 @@ from typing import NamedTuple
 
 import torch
 
-from ccqppy_tpu_torch.models.base import (SolverConfig, default_x0, init_trace,
-                                          lanes, make_result, pg_residual,
-                                          record_trace, select_lanes, where_lanes)
+from ccqppy_tpu_torch.models.base import (SolverConfig, any_lane, default_x0,
+                                          init_trace, lanes, make_result,
+                                          pg_residual, record_trace,
+                                          select_lanes, where_lanes)
 from ccqppy_tpu_torch.ops.linop import as_operator, power_spectral_bounds
 from ccqppy_tpu_torch.ops.projections import identity
 
@@ -130,7 +131,7 @@ def solve(A, b, x0=None, proj=None, config: APGDConfig = APGDConfig()):
         bt = torch.zeros_like(mv)
         while True:
             again = active & ~c.ok & (mv < budget) & (bt < config.max_backtracks)
-            if not bool(again.any()):
+            if not any_lane(again):
                 break
             L = torch.where(again, L * config.backtrack_grow, L)
             c = select_lanes(again, trial(L), c)
@@ -160,7 +161,7 @@ def solve(A, b, x0=None, proj=None, config: APGDConfig = APGDConfig()):
 
     while True:
         active = ~s.done
-        if not bool(active.any()):
+        if not any_lane(active):
             break
         s = select_lanes(active, body(s, active), s)
     # APGD-AR reports its best iterate with the last iterate's residual.
@@ -257,7 +258,7 @@ def solve_sc(A, b, x0=None, proj=None, config: APGDSCConfig = APGDSCConfig()):
 
     while True:
         active = ~s.done
-        if not bool(active.any()):
+        if not any_lane(active):
             break
         s = select_lanes(active, body(s), s)
     # converged := mv < max keeps unverified budget-edge claims honest; every

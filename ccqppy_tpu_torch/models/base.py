@@ -8,12 +8,23 @@ every ``SolveResult`` field carries a leading lane axis, and
   residual ``|| (x - proj(x - gd*g)) || / (3 n gd)``, evaluated through each
   projection's cancellation-free closed form so it stays meaningful in f32.
 * Budget semantics: ``converged := matvecs < max_matvecs`` at exit.
+* Telemetry: ``span`` marks a stretch of host time for ``torch.profiler``
+  and costs one check of the profiler's state when none records;
+  ``any_lane`` and ``lane_indices`` are the solvers' only reads of a
+  device value on the host, each counted in ``HOST_SYNCS``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
+
+#: Host reads of a device value in this process (``any_lane`` and
+#: ``lane_indices``): on CUDA each waits for the stream to drain.
+HOST_SYNCS = 0
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 @dataclasses.dataclass
@@ -115,3 +126,26 @@ def select_lanes(mask, new, old):
 def eps_of(x):
     """10*eps stagnation guard."""
     return 10 * torch.finfo(x.dtype).eps
+
+
+def span(name):
+    """A ``torch.profiler.record_function(name)`` while a profiler records,
+    else a shared no-op context: nothing is entered when no one profiles."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def any_lane(mask):
+    """``bool(mask.any())``, read on the host; counted in ``HOST_SYNCS``."""
+    global HOST_SYNCS
+    HOST_SYNCS += 1
+    return bool(mask.any())
+
+
+def lane_indices(mask):
+    """The indices of the set lanes of ``mask`` (B,), as a (k,) tensor; the
+    count k is read on the host, counted in ``HOST_SYNCS``."""
+    global HOST_SYNCS
+    HOST_SYNCS += 1
+    return torch.nonzero(mask).squeeze(1)

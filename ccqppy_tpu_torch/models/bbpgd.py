@@ -25,10 +25,11 @@ from typing import NamedTuple
 
 import torch
 
-from ccqppy_tpu_torch.models.base import (SolverConfig, default_x0, eps_of,
-                                          init_trace, lanes, make_result,
-                                          pg_residual, record_trace,
-                                          select_lanes, where_lanes)
+from ccqppy_tpu_torch.models.base import (SolverConfig, any_lane, default_x0,
+                                          eps_of, init_trace, lanes,
+                                          make_result, pg_residual,
+                                          record_trace, select_lanes,
+                                          where_lanes)
 from ccqppy_tpu_torch.ops.linop import as_operator
 from ccqppy_tpu_torch.ops.projections import identity
 
@@ -119,7 +120,7 @@ def _solve(A, b, x0, proj, config, fallback):
 
     while True:
         active = ~s.done
-        if not bool(active.any()):
+        if not any_lane(active):
             break
         s = select_lanes(active, body(s), s)
     return make_result(s.x, s.res, s.mv, s.it, budget, s.trace)

@@ -32,10 +32,11 @@ from typing import NamedTuple
 
 import torch
 
-from ccqppy_tpu_torch.models.base import (SolverConfig, default_x0, eps_of,
-                                          init_trace, lanes, make_result,
-                                          pg_residual, record_trace,
-                                          select_lanes, where_lanes)
+from ccqppy_tpu_torch.models.base import (SolverConfig, any_lane, default_x0,
+                                          eps_of, init_trace, lanes,
+                                          make_result, pg_residual,
+                                          record_trace, select_lanes,
+                                          where_lanes)
 from ccqppy_tpu_torch.ops.linop import as_operator
 from ccqppy_tpu_torch.ops.projections import identity
 
@@ -171,12 +172,12 @@ def _solve(A, b, x0, proj, config, bb_variant):
 
     while True:
         outer = ~o.done
-        if not bool(outer.any()):
+        if not any_lane(outer):
             break
         s = o
         while True:
             active = outer & ~s.done
-            if not bool(active.any()):
+            if not any_lane(active):
                 break
             s = select_lanes(active, body(s), s)
         # Verification sweep for every outer-active lane, with the exact
@@ -311,7 +312,7 @@ def _solve_fused(A, b, x0, proj, config, bb_variant):
 
     while True:
         active = ~s.done
-        if not bool(active.any()):
+        if not any_lane(active):
             break
         s = select_lanes(active, body(s), s)
     # Every converged exit carries a fresh-gradient residual; budget exits

@@ -45,10 +45,10 @@ from typing import NamedTuple
 import torch
 
 from ccqppy_tpu_torch.models import mprgp
-from ccqppy_tpu_torch.models.base import (SolverConfig, default_x0, eps_of,
-                                          init_trace, lanes, make_result,
-                                          pg_residual, record_trace,
-                                          select_lanes)
+from ccqppy_tpu_torch.models.base import (SolverConfig, any_lane, default_x0,
+                                          eps_of, init_trace, lanes,
+                                          make_result, pg_residual,
+                                          record_trace, select_lanes)
 from ccqppy_tpu_torch.ops.linop import as_operator
 from ccqppy_tpu_torch.ops.projections import identity
 
@@ -187,12 +187,12 @@ def solve(A, b, x0=None, proj=None, config: PCGConfig = PCGConfig()):
 
     while True:
         outer = ~o.done
-        if not bool(outer.any()):
+        if not any_lane(outer):
             break
         s = inner_init(o)
         while True:
             active = outer & ~s.done
-            if not bool(active.any()):
+            if not any_lane(active):
                 break
             s = select_lanes(active, body(s), s)
         # Verification sweep for every outer-active lane.
@@ -270,7 +270,7 @@ def _solve_rr(op, b, x0, proj, config, prec, tiny):
 
     while True:
         outer = ~s.done
-        if not bool(outer.any()):
+        if not any_lane(outer):
             break
         # Segment start: exact steepest descent on the free set, conjugated
         # against the carried direction in keep-p mode.
@@ -288,7 +288,7 @@ def _solve_rr(op, b, x0, proj, config, prec, tiny):
                      (rr0 == 0) | (s.mv >= budget))
         while True:
             active = outer & ~t.done
-            if not bool(active.any()):
+            if not any_lane(active):
                 break
             t = select_lanes(active, inner_body(t), t)
         # Exact refresh: gradient, mask, true residual.

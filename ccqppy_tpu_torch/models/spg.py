@@ -31,9 +31,10 @@ from typing import NamedTuple
 
 import torch
 
-from ccqppy_tpu_torch.models.base import (SolverConfig, default_x0, init_trace,
-                                          lanes, make_result, pg_residual,
-                                          record_trace, select_lanes, where_lanes)
+from ccqppy_tpu_torch.models.base import (SolverConfig, any_lane, default_x0,
+                                          init_trace, lanes, make_result,
+                                          pg_residual, record_trace,
+                                          select_lanes, where_lanes)
 from ccqppy_tpu_torch.ops.linop import as_operator
 from ccqppy_tpu_torch.ops.projections import identity
 from ccqppy_tpu_torch.utils import rng
@@ -138,7 +139,7 @@ def solve(A, b, x0=None, proj=None, config: SPGConfig = SPGConfig(), keys=None,
 
     while True:
         active = ~s.done
-        if not bool(active.any()):
+        if not any_lane(active):
             break
         s = select_lanes(active, body(s), s)
     return make_result(s.x, s.res, s.mv, s.it, budget, s.trace)

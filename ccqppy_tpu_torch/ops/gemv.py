@@ -32,6 +32,8 @@ LAUNCHES_BF16 = 0
 #: The f64 launches among ``LAUNCHES`` (f64 ``DenseOperator``, the exact
 #: sweep of the f64-exact rung).
 LAUNCHES_F64 = 0
+#: Lanes of A the launches among ``LAUNCHES`` streamed: B a launch.
+LANES_SWEPT = 0
 
 #: (A dtype, x dtype) -> the kernel instance that takes them; y has x's dtype.
 INSTANCES = {(torch.float32, torch.float32): "batched_gemv_f32",
@@ -82,7 +84,7 @@ def batched_gemv(A, x):
     runs on the current stream and y has x's dtype.  On the CPU: the plain
     version, in any floating dtype.
     """
-    global LAUNCHES, LAUNCHES_BF16, LAUNCHES_F64
+    global LAUNCHES, LAUNCHES_BF16, LAUNCHES_F64, LANES_SWEPT
     _check(A, x)
     if A.device.type == "cpu":
         return batched_gemv_reference(A, x)
@@ -100,6 +102,7 @@ def batched_gemv(A, x):
     if err != 0:
         raise RuntimeError(f"batched_gemv kernel launch failed with CUDA error {err}")
     LAUNCHES += 1
+    LANES_SWEPT += B
     if A.dtype == torch.bfloat16:
         LAUNCHES_BF16 += 1
     elif A.dtype == torch.float64:

@@ -24,6 +24,15 @@ phase 2, in the bucket and in the host fallback, ``fold_in(keys, 1)``.
 With no keys, SPG seeds its batch with ``split_keys(0, B)``, which in a
 compacted batch depends on the lane's place in it: pass keys for streams
 that follow the lanes.
+
+Spans (``models.base.span``; recorded only while ``torch.profiler``
+records, else never entered): ``ccqppy.solve`` around each public batch
+entry (``solve_batched``, ``solve_batched_compact``,
+``solve_batched_fused_compact``; one per call, not one per nested entry),
+``ccqppy.phase1`` around the phase-1 solve, ``ccqppy.gather`` around the
+selection of the lanes to re-solve and the gather of their inputs,
+``ccqppy.phase2`` around their re-solve and scatter, and
+``ccqppy.fallback`` around the fused path's host fallback.
 """
 from __future__ import annotations
 
@@ -32,7 +41,7 @@ import dataclasses
 import torch
 
 from ccqppy_tpu_torch.models import SOLVERS
-from ccqppy_tpu_torch.models.base import SolveResult
+from ccqppy_tpu_torch.models.base import SolveResult, lane_indices, span
 from ccqppy_tpu_torch.ops.linop import LinearOperator
 from ccqppy_tpu_torch.parallel.distributed import mesh_1d, mesh_axis
 from ccqppy_tpu_torch.utils import rng
@@ -75,6 +84,11 @@ def solve_batched(solver, A, b, x0=None, proj=None, config=None, keys=None,
     """Solve a batch of QPs: A (B, n, n), b (B, n), x0 (B, n) or None.
     ``keys``: (B,) int64 per-lane seeds for a solver that takes them (SPG).
     Returns a ``SolveResult`` with a leading lane axis on every field."""
+    with span("ccqppy.solve"):
+        return _solve_batched(solver, A, b, x0, proj, config, keys, proj_batched)
+
+
+def _solve_batched(solver, A, b, x0, proj, config, keys, proj_batched):
     if keys is not None:
         rng.check_keys(keys, b.shape[0], b.device)
     _check_lane_proj(proj, b.shape[0], proj_batched)
@@ -147,13 +161,15 @@ def solve_batched_compact(solver, A, b, phase1_matvecs, x0=None, proj=None,
     trajectories, are preserved."""
     fn = _get_solver(solver)
     cfg1, cfg2 = _phase_configs(config, phase1_matvecs)
-    r1 = solve_batched(fn, A, b, x0=x0, proj=proj, config=cfg1, keys=keys,
-                       proj_batched=proj_batched)
 
     def run2(A2, b2, x02, proj2, keys2):
         return fn(A2, b2, x0=x02, proj=proj2, **_solver_kwargs(cfg2, keys2))
 
-    return host_compact_finish(run2, A, b, r1, proj, keys=keys, proj_batched=proj_batched)
+    with span("ccqppy.solve"):
+        with span("ccqppy.phase1"):
+            r1 = _solve_batched(fn, A, b, x0, proj, cfg1, keys, proj_batched)
+        return host_compact_finish(run2, A, b, r1, proj, keys=keys,
+                                   proj_batched=proj_batched)
 
 
 def _gather_A(A, idx):
@@ -181,11 +197,12 @@ def _scatter(r1, idx, r2):
     )
 
 
-def _run_lanes(run2, A, b, x, proj, keys, idx, proj_batched):
-    """``run2`` on lanes ``idx``: their Hessians, right-hand sides, start
-    points, projection (with ``proj_batched``) and keys (if any)."""
-    return run2(_gather_A(A, idx), b[idx], x[idx], _lane_proj(proj, idx, proj_batched),
-                None if keys is None else keys[idx])
+def _gather_lanes(A, b, x, proj, keys, idx, proj_batched):
+    """The arguments of ``run2`` for lanes ``idx``: their Hessians,
+    right-hand sides, start points, projection (with ``proj_batched``) and
+    keys (if any)."""
+    return (_gather_A(A, idx), b[idx], x[idx], _lane_proj(proj, idx, proj_batched),
+            None if keys is None else keys[idx])
 
 
 def host_compact_finish(run2, A, b, r1, proj, keys=None, eligible=None,
@@ -196,10 +213,13 @@ def host_compact_finish(run2, A, b, r1, proj, keys=None, eligible=None,
     results back.  With ``proj_batched`` the projection's lanes are
     gathered too, and with ``keys`` the keys (``keys2`` is None without)."""
     mask = ~r1.converged if eligible is None else eligible
-    idx = torch.nonzero(mask).squeeze(1)
-    if idx.numel() == 0:
-        return r1
-    return _scatter(r1, idx, _run_lanes(run2, A, b, r1.x, proj, keys, idx, proj_batched))
+    with span("ccqppy.gather"):
+        idx = lane_indices(mask)
+        if idx.numel() == 0:
+            return r1
+        inputs = _gather_lanes(A, b, r1.x, proj, keys, idx, proj_batched)
+    with span("ccqppy.phase2"):
+        return _scatter(r1, idx, run2(*inputs))
 
 
 def solve_batched_fused_compact(solver, A, b, phase1_matvecs, x0=None,
@@ -219,25 +239,32 @@ def solve_batched_fused_compact(solver, A, b, phase1_matvecs, x0=None,
     """
     if not isinstance(solver, str):
         raise TypeError("solve_batched_fused_compact takes a solver NAME")
-    if keys is not None:
-        rng.check_keys(keys, b.shape[0], b.device)
-    _check_lane_proj(proj, b.shape[0], proj_batched)
-    cfg1, cfg2 = _phase_configs(config, phase1_matvecs)
-    fn = _get_solver(solver)
+    with span("ccqppy.solve"):
+        if keys is not None:
+            rng.check_keys(keys, b.shape[0], b.device)
+        _check_lane_proj(proj, b.shape[0], proj_batched)
+        cfg1, cfg2 = _phase_configs(config, phase1_matvecs)
+        fn = _get_solver(solver)
 
-    def run2(A2, b2, x02, proj2, keys2):
-        return fn(A2, b2, x0=x02, proj=proj2, **_solver_kwargs(cfg2, keys2))
+        def run2(A2, b2, x02, proj2, keys2):
+            return fn(A2, b2, x0=x02, proj=proj2, **_solver_kwargs(cfg2, keys2))
 
-    r = fn(A, b, x0=x0, proj=proj, **_solver_kwargs(cfg1, keys))
-    # Phase 2 draws from a stream of its own: each lane's key with 1 folded in.
-    keys2 = None if keys is None else rng.fold_in(keys, 1)
-    idx = torch.nonzero(~r.converged).squeeze(1)[:int(bucket)]
-    if idx.numel() > 0:
-        r = _scatter(r, idx, _run_lanes(run2, A, b, r.x, proj, keys2, idx, proj_batched))
-    if not host_fallback:
-        return r
-    # Overflow lanes spent only the phase-1 budget; lanes that exhausted the
-    # full budget keep their honest converged=False.
-    eligible = ~r.converged & (r.matvecs < int(config.max_matvecs))
-    return host_compact_finish(run2, A, b, r, proj, keys=keys2, eligible=eligible,
-                               proj_batched=proj_batched)
+        with span("ccqppy.phase1"):
+            r = fn(A, b, x0=x0, proj=proj, **_solver_kwargs(cfg1, keys))
+        # Phase 2 draws from a stream of its own: each lane's key with 1 folded in.
+        keys2 = None if keys is None else rng.fold_in(keys, 1)
+        with span("ccqppy.gather"):
+            idx = lane_indices(~r.converged)[:int(bucket)]
+            inputs = (_gather_lanes(A, b, r.x, proj, keys2, idx, proj_batched)
+                      if idx.numel() > 0 else None)
+        if inputs is not None:
+            with span("ccqppy.phase2"):
+                r = _scatter(r, idx, run2(*inputs))
+        if not host_fallback:
+            return r
+        # Overflow lanes spent only the phase-1 budget; lanes that exhausted the
+        # full budget keep their honest converged=False.
+        eligible = ~r.converged & (r.matvecs < int(config.max_matvecs))
+        with span("ccqppy.fallback"):
+            return host_compact_finish(run2, A, b, r, proj, keys=keys2, eligible=eligible,
+                                       proj_batched=proj_batched)
