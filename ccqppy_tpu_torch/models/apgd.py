@@ -33,6 +33,22 @@ Batching as in ``models/pcg.py``: lanes are the leading axis, every scalar
 of the JAX state is a ``(B,)`` tensor, lanes that are done keep their state
 through ``torch.where``, and the host reads one "any lane left?" flag per
 iteration (and classic APGD one more per backtracking trial).
+
+``solve_sc`` on the card runs each iteration as the GEMV and one fused
+kernel (``ops.sc_step``, ``csrc/apgd_sc_step.cu``), which computes the
+eager body ``_sc_body`` and the select of the running lanes in place, branch
+for branch, and writes the next GEMV's input: with the flag's two kernels,
+four launches an iteration where the eager body takes ~220.  It does so
+when what it can observe allows: ``b`` a contiguous f32 or f64 CUDA tensor,
+the operator's ``dot`` and ``global_size`` those of ``LinearOperator`` (a
+sharded operator's all-reduce ``dot`` keeps the eager body), no trace
+(``trace_len == 0``), and a set that ``ops.sc_step.set_args`` takes (a
+blockwise Lorentz cone with one mu or one a block, a box with ``(n,)`` or
+``(B, n)`` bounds).  The operator's output decides last: an ``A v`` in
+another dtype than b (f64 blocks under an f32 b) hands that iteration and
+the rest to the eager body, which promotes the state with it.  Everything
+else, the CPU included, runs the eager body.  ``SC_STEPS_FUSED`` and
+``SC_STEPS_EAGER`` count the iterations of each path.
 """
 from __future__ import annotations
 
@@ -45,8 +61,14 @@ from ccqppy_tpu_torch.models.base import (SolverConfig, any_lane, default_x0,
                                           init_trace, lanes, make_result,
                                           pg_residual, record_trace,
                                           select_lanes, where_lanes)
-from ccqppy_tpu_torch.ops.linop import as_operator, power_spectral_bounds
+from ccqppy_tpu_torch.ops import sc_step
+from ccqppy_tpu_torch.ops.linop import LinearOperator, as_operator, power_spectral_bounds
 from ccqppy_tpu_torch.ops.projections import identity
+
+#: Iterations of ``solve_sc`` in this process, by path: the fused kernel on
+#: the card, or the eager body.
+SC_STEPS_FUSED = 0
+SC_STEPS_EAGER = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,30 +259,86 @@ def solve_sc(A, b, x0=None, proj=None, config: APGDSCConfig = APGDSCConfig()):
                verifying=torch.zeros(B, dtype=torch.bool, device=b.device),
                trace=init_trace(config, B, b.dtype, b.device))
 
-    def body(s):
-        ver = s.verifying[:, None]
-        g = op.matvec(torch.where(ver, s.x, s.y)) + b    # the one sweep
-        mv = s.mv + 1
-        x1 = proj.project(s.y - g / L)
-        x1v = proj.project(s.x - g / L)                  # resume step on a failed claim
-        res = pg_residual(proj, torch.where(ver, s.x, x1), g, config.gd, op)
-        if config.restart:
-            b_eff = torch.where((op.dot(s.y - x1, x1 - s.x) > 0)[:, None], 0.0, beta)
-        else:
-            b_eff = beta
-        done_v = s.verifying & (res < config.tol)
-        x_next = torch.where(done_v[:, None], s.x, torch.where(ver, x1v, x1))
-        y_next = torch.where(ver, x_next, x1 + b_eff * (x1 - s.x))
-        done = done_v | (mv >= budget)
-        verifying = ~s.verifying & (res < config.tol) & ~done
-        return _SCState(x_next, y_next, res, mv, s.it + 1, done, verifying,
-                      record_trace(s.trace, s.it, res))
+    sargs = _fused_set_args(op, b, proj, config)
+    if sargs is not None:
+        s = _sc_loop_fused(op, b, s, proj, L, beta, sargs, config)
+    else:
+        s = _sc_loop_eager(op, b, s, proj, L, beta, config)
+    # converged := mv < max keeps unverified budget-edge claims honest; every
+    # done_v exit carries a fresh-gradient residual.
+    return make_result(s.x, s.res, s.mv, s.it, budget, s.trace)
 
+
+def _sc_body(s, op, b, proj, L, beta, config, Av=None):
+    """One eager iteration of ``solve_sc`` on every lane (the caller keeps
+    the done lanes' state): the plain version of ``ops.sc_step``.  ``Av``
+    is the sweep ``A where(verifying, x, y)`` when the caller has taken it."""
+    ver = s.verifying[:, None]
+    if Av is None:
+        Av = op.matvec(torch.where(ver, s.x, s.y))   # the one sweep
+    g = Av + b
+    mv = s.mv + 1
+    x1 = proj.project(s.y - g / L)
+    x1v = proj.project(s.x - g / L)                  # resume step on a failed claim
+    res = pg_residual(proj, torch.where(ver, s.x, x1), g, config.gd, op)
+    if config.restart:
+        b_eff = torch.where((op.dot(s.y - x1, x1 - s.x) > 0)[:, None], 0.0, beta)
+    else:
+        b_eff = beta
+    done_v = s.verifying & (res < config.tol)
+    x_next = torch.where(done_v[:, None], s.x, torch.where(ver, x1v, x1))
+    y_next = torch.where(ver, x_next, x1 + b_eff * (x1 - s.x))
+    done = done_v | (mv >= config.max_matvecs)
+    verifying = ~s.verifying & (res < config.tol) & ~done
+    return _SCState(x_next, y_next, res, mv, s.it + 1, done, verifying,
+                    record_trace(s.trace, s.it, res))
+
+
+def _fused_set_args(op, b, proj, config):
+    """``ops.sc_step.set_args`` of ``proj`` when ``solve_sc`` may run the
+    fused step (see the module docstring), else None."""
+    if not (b.is_cuda and b.is_contiguous() and b.dtype in (torch.float32, torch.float64)):
+        return None
+    if type(op).dot is not LinearOperator.dot or \
+            type(op).global_size is not LinearOperator.global_size:
+        return None
+    if config.trace_len:
+        return None
+    return sc_step.set_args(proj, b)
+
+
+def _sc_loop_eager(op, b, s, proj, L, beta, config, Av=None):
+    """``solve_sc``'s loop with the eager body; ``Av``, when given, is the
+    first iteration's sweep."""
+    global SC_STEPS_EAGER
     while True:
         active = ~s.done
         if not any_lane(active):
             break
-        s = select_lanes(active, body(s), s)
-    # converged := mv < max keeps unverified budget-edge claims honest; every
-    # done_v exit carries a fresh-gradient residual.
-    return make_result(s.x, s.res, s.mv, s.it, budget, s.trace)
+        s = select_lanes(active, _sc_body(s, op, b, proj, L, beta, config, Av), s)
+        Av = None
+        SC_STEPS_EAGER += 1
+    return s
+
+
+def _sc_loop_fused(op, b, s, proj, L, beta, sargs, config):
+    """``solve_sc``'s loop with the fused step: a GEMV on ``v``, the step
+    kernel, and the "any lane left?" test an iteration.  Every field of the
+    state is updated in place; x and y, which start as one tensor (a start
+    shared by the lanes may be ``(n,)``), are copied to ``(B, n)`` first.
+    An ``A v`` in another dtype than b goes to the eager loop, with the
+    state as it stands."""
+    global SC_STEPS_FUSED
+    x = s.x.expand(b.shape).clone(memory_format=torch.contiguous_format)
+    s = s._replace(x=x, y=x.clone())
+    v = x.clone()                                    # no lane verifies at the start
+    L = L.contiguous()
+    while any_lane(~s.done):
+        Av = op.matvec(v)
+        if Av.dtype != b.dtype:
+            return _sc_loop_eager(op, b, s, proj, L, beta, config, Av)
+        sc_step.step(sargs, Av.contiguous(), b, s.x, s.y, v, s.res, s.mv, s.it, s.done,
+                     s.verifying, L, beta, tol=config.tol, gd=config.gd,
+                     budget=config.max_matvecs, restart=config.restart)
+        SC_STEPS_FUSED += 1
+    return s

@@ -25,13 +25,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # C signatures of the exported launchers: pointers and the stream as
 # c_void_p (a bare Python int would be cut to 32 bits), sizes as c_int64.
-_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+_P, _I64, _F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+# apgd_sc_step_*: the state's twelve pointers (A v, b, x, y, v, res, mv, it,
+# done, verifying, L, beta), the set's parameters, then (batch, n, tol,
+# budget, restart, stream).
+_STEP = (_P,) * 12
+_STEP_TAIL = (_I64, _I64, _F64, _I64, _I64, _P)
 SIGNATURES = {
     "batched_gemv_f32": (_P, _P, _P, _I64, _I64, _P),
     "batched_gemv_bf16": (_P, _P, _P, _I64, _I64, _P),
     "batched_gemv_f64": (_P, _P, _P, _I64, _I64, _P),
     "batched_symv_packed_f32": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
     "batched_symv_full_f32": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
+    "apgd_sc_step_lorentz_f32": (*_STEP, _P, _I64, _I64, *_STEP_TAIL),
+    "apgd_sc_step_lorentz_f64": (*_STEP, _P, _I64, _I64, *_STEP_TAIL),
+    "apgd_sc_step_box_f32": (*_STEP, _P, _I64, _P, _I64, _F64, *_STEP_TAIL),
+    "apgd_sc_step_box_f64": (*_STEP, _P, _I64, _P, _I64, _F64, *_STEP_TAIL),
 }
 
 

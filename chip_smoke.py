@@ -43,7 +43,11 @@ Hessian family, tol 1e-5, a 2000-matvec budget, right-hand sides perturbed
 per call.  Its prep is ``estimate_spectral_bounds`` (outside the clock,
 checked on 16 lanes against the plain f64 version and against eigvalsh);
 every call starts from the cone-Jacobi point ``proj(-b / diag A)``.  Two
-runs: (a) ``apgd_sc`` on ``SpectralDense``, the headline; (b) fused
+runs: (a) ``apgd_sc`` on ``SpectralDense``, the headline (every iteration
+the GEMV and the fused step kernel ``csrc/apgd_sc_step.cu``; then one step
+is checked against the eager body it replaces, from one state with lanes
+done, verifying and plain and tol between two residuals, and both are
+timed alone at (1024, 999)); (b) fused
 MPRGP-BB with straggler compaction (phase 1 at 43 matvecs, a 256-lane
 bucket); (g) SPG, the benchmark's SPG row: ``solve_batched("spg", ...)``
 from x = 0 with per-lane keys from seed 1, then one untimed, audited call
@@ -54,8 +58,10 @@ the cone-Jacobi start.  Every matvec of the mode is the GEMV kernel.
 
 The box section adds (i) classic APGD, the single-constraint study's
 solver, on the iterative mode's ensemble from its Jacobi start, at the
-study's budget of 5000 matvecs.  Then the README's quick start: SPG on
-its 3x3 box QP at B=1.
+study's budget of 5000 matvecs; (i') ``apgd_sc`` on the same ensemble and
+start (``SpectralDense``, tol 2e-5), fused, then eager (a one-entry trace
+keeps the eager body), and the box's step checked and timed as the cone's
+is.  Then the README's quick start: SPG on its 3x3 box QP at B=1.
 
 Two modes take f64 and a sparse operator onto the card, each the
 configuration of a JAX benchmark unchanged:
@@ -168,6 +174,7 @@ printed beside it.  Mode walls are host clocks around synchronised calls.
 
 Run:  python3 chip_smoke.py      (needs one CUDA GPU, nvcc for sm_90a)
 """
+import dataclasses
 import gc
 import json
 import os
@@ -183,18 +190,19 @@ from ccqppy_tpu_torch import bench, compat
 from ccqppy_tpu_torch.benchmarks import (benchmark_ensemble_16k, benchmark_f64_probe,
                                          benchmark_illcond, benchmark_large_cone,
                                          benchmark_mixed_segment, benchmark_warmstart_sequence)
-from ccqppy_tpu_torch.models import pcg, spg
+from ccqppy_tpu_torch.models import apgd, pcg, spg
 from ccqppy_tpu_torch.models.apgd import APGDConfig, APGDSCConfig
-from ccqppy_tpu_torch.models.base import pg_residual
+from ccqppy_tpu_torch.models.base import pg_residual, select_lanes
 from ccqppy_tpu_torch.models.bbpgd import BBPGDfConfig
 from ccqppy_tpu_torch.models.direct import solve_direct_batched, spd_inverse_batch
 from ccqppy_tpu_torch.models.mprgp import MPRGPBBConfig
 from ccqppy_tpu_torch.models.pcg import PCGConfig
 from ccqppy_tpu_torch.models.spg import SPGConfig
-from ccqppy_tpu_torch.ops import collectives, gemv, kernels, symv
+from ccqppy_tpu_torch.ops import collectives, gemv, kernels, sc_step, symv
 from ccqppy_tpu_torch.ops.linop import (BlockSparseOperator, CastDense, DenseOperator,
-                                        MixedPrecDense, ShardedDenseOperator, SpectralDense,
-                                        SymmetricPackedDense, estimate_spectral_bounds)
+                                        LinearOperator, MixedPrecDense, ShardedDenseOperator,
+                                        SpectralDense, SymmetricPackedDense,
+                                        estimate_spectral_bounds)
 from ccqppy_tpu_torch.ops.projections import blockwise, box, lorentz_cone
 from ccqppy_tpu_torch.parallel import (init_distributed, make_batch_mesh, make_mesh,
                                        prepare_dense_batch, scaling_probe, solve_batched,
@@ -339,6 +347,7 @@ def require(ok, msg):
 def zero_counts():
     """Set every kernel's launch count to 0, just before a mode runs."""
     gemv.LAUNCHES = gemv.LAUNCHES_BF16 = gemv.LAUNCHES_F64 = 0
+    sc_step.LAUNCHES = apgd.SC_STEPS_FUSED = apgd.SC_STEPS_EAGER = 0
     symv.LAUNCHES.update(dict.fromkeys(symv.LAUNCHES, 0))
     COLLECTIVES.update(dict.fromkeys(COLLECTIVES, 0))
 
@@ -405,6 +414,109 @@ def run_cone_apgd(sop, b, proj, cfg):
     """One call of the cone mode's run (a): apgd_sc on SpectralDense."""
     return solve_batched("apgd_sc", sop, b, x0=cone_x0(proj, sop.diagonal(), b),
                          proj=proj, config=cfg)
+
+
+def require_fused(name):
+    """Every apgd_sc iteration of the mode just run took the fused step."""
+    require(apgd.SC_STEPS_EAGER == 0 and sc_step.LAUNCHES == apgd.SC_STEPS_FUSED > 0,
+            f"{name}: {apgd.SC_STEPS_FUSED} fused and {apgd.SC_STEPS_EAGER} eager "
+            f"iterations, {sc_step.LAUNCHES} step launches")
+
+
+def print_sc_step(name, out, fused):
+    print(f"apgd_sc step {name} f32 (B={out['B']}, n={out['n']}): kernel {out['ms']:.4f} ms, "
+          f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}), eager body "
+          f"{out['plain_ms']:.4f} ms; checked against the eager body {out['check']}; "
+          f"{fused} fused iterations in the mode's run")
+
+
+def run_box_apgd_sc(sop, b, diag, proj, cfg):
+    """One call of (i'): apgd_sc on SpectralDense from the Jacobi start."""
+    return solve_batched("apgd_sc", sop, b, x0=jacobi_x0(diag, b), proj=proj, config=cfg)
+
+
+def check_sc_step(As, bs, proj):
+    """The fused apgd_sc step on the card at a mode's width, against the
+    eager body with its select (its plain version), then timed.
+
+    Check: from one state, one step and one ``select_lanes(~done,
+    _sc_body(...))`` on the same ``A v``.  Lanes are done (every 8th),
+    verifying (three in 8) or plain, one in 16 a matvec short of the budget;
+    y is x moved off the set, so that the restart test goes both ways; tol
+    lies in the widest gap between two neighbouring residuals of the middle
+    half of the running lanes, so that both sides of it hold lanes and no
+    flag rests on the order of the residual's sum.  Required: mv, it, done
+    and verifying equal, every field of a done lane bitwise kept, x, y and
+    v within 4 ulps of the largest entry, res within 1e-5 relative.
+
+    Timing, device-only: a plain step on every lane (tol 0 keeps every lane
+    running and none verifying), against its bytes (A v, b, x, y read, x,
+    y, v written, and the lane scalars) and against the eager body with its
+    select, which it replaces."""
+    B, n = bs.shape
+    dev = bs.device
+    sargs = sc_step.set_args(proj, bs)
+    require(sargs is not None, f"sc_step.set_args refused {type(proj).__name__}")
+    x = proj.project(-bs / As.diagonal(dim1=-2, dim2=-1))
+    Av = gemv.batched_gemv(As, x)
+    L = torch.full((B, 1), float(n) * 4, device=dev)
+    beta = torch.full((B, 1), 0.9, device=dev)
+    op = LinearOperator()                  # the fused path's own dot and global_size
+
+    lane = torch.arange(B, device=dev)
+    budget = 50
+    s = apgd._SCState(
+        x, x + 0.05 * torch.sin(lane[:, None] + torch.arange(n, device=dev)),
+        torch.full((B,), torch.inf, device=dev),
+        torch.where(lane % 16 == 5, budget - 1, lane % 7 + 3).to(torch.int32),
+        (lane % 5).to(torch.int32), lane % 8 == 0, (lane % 8 >= 1) & (lane % 8 <= 3),
+        torch.zeros((B, 0), device=dev))
+    cfg = APGDSCConfig(tol=1.0, max_matvecs=budget)
+    res = apgd._sc_body(s, op, bs, proj, L, beta, cfg, Av).res[~s.done].sort().values
+    lo = len(res) // 4
+    k = max(range(lo, 3 * lo), key=lambda i: float(res[i + 1] / res[i]))
+    gap = float(res[k + 1] / res[k])
+    require(gap > 1 + 1e-5, f"apgd_sc step check: no gap between residuals ({gap})")
+    cfg = APGDSCConfig(tol=float(torch.sqrt(res[k] * res[k + 1])), max_matvecs=budget)
+    ref = select_lanes(~s.done, apgd._sc_body(s, op, bs, proj, L, beta, cfg, Av), s)
+    f = apgd._SCState(*(t.clone() for t in s))
+    v = torch.where(f.verifying[:, None], f.x, f.y)
+    sc_step.step(sargs, Av, bs, f.x, f.y, v, f.res, f.mv, f.it, f.done, f.verifying, L, beta,
+                 tol=cfg.tol, gd=cfg.gd, budget=budget, restart=cfg.restart)
+    for name in ("mv", "it", "done", "verifying"):
+        require(torch.equal(getattr(f, name), getattr(ref, name)),
+                f"apgd_sc step: {name} differs from the eager body on "
+                f"{int((getattr(f, name) != getattr(ref, name)).sum())} lanes")
+    for name, got, old in zip(apgd._SCState._fields, f, s):
+        require(name == "trace" or torch.equal(got[s.done], old[s.done]),
+                f"apgd_sc step: a done lane's {name} changed")
+    eps = torch.finfo(bs.dtype).eps
+    for name, got, want in (("x", f.x, ref.x), ("y", f.y, ref.y),
+                            ("v", v, torch.where(ref.verifying[:, None], ref.x, ref.y))):
+        err = float((got - want).abs().max())
+        require(err <= 4 * eps * float(want.abs().max()),
+                f"apgd_sc step: {name} off the eager body by {err}")
+    run = ~s.done                          # a done lane's res is inf, checked above
+    err = float(((f.res[run] - ref.res[run]).abs() / ref.res[run]).max())
+    require(err <= 1e-5, f"apgd_sc step: res off the eager body by {err} relative")
+    out = {"B": B, "n": n, "check": {"tol": cfg.tol, "gap": gap, "res_rel_err": err,
+                                     "verifying_exits": int((s.verifying & ref.done).sum())}}
+
+    s = s._replace(x=x, y=x.clone(), mv=torch.zeros_like(s.mv), it=torch.zeros_like(s.it),
+                   done=torch.zeros_like(s.done), verifying=torch.zeros_like(s.verifying))
+    cfg = APGDSCConfig(tol=0.0, max_matvecs=1 << 30)
+    v = x.clone()
+    step = lambda: sc_step.step(sargs, Av, bs, s.x, s.y, v, s.res, s.mv, s.it, s.done,
+                                s.verifying, L, beta, tol=cfg.tol, gd=cfg.gd,
+                                budget=cfg.max_matvecs, restart=cfg.restart)
+    plain = lambda: select_lanes(~s.done, apgd._sc_body(s, op, bs, proj, L, beta, cfg, Av), s)
+    # A lane's scalars: L, beta, mv, it, done, verifying read (18 bytes);
+    # res, mv, it, done, verifying written (14).  About 40 operations an
+    # element: the trial point, its projection's normal, the residual.
+    nbytes = 7 * bs.numel() * bs.element_size() + B * (18 + 14)
+    out.update(ms=device_ms(step), plain_ms=device_ms(plain))
+    out["bound_ms"], out["bound_by"] = bound(nbytes, 40 * bs.numel())
+    return out
 
 
 def run_cone_mprgp(As, b, diag, proj, cfg):
@@ -1489,7 +1601,32 @@ def main():
     print("box apgd: backtracking trials in the warm-up call: %d over all lanes (max %d "
           "a lane), %d batched trial launches" % apgd_trials(r_apgd, launches))
     gemv_launches += gemv.LAUNCHES
-    del As, As16, bs, x_uncon, diag, r_apgd, rr_runs, op_rr   # rr_runs held 12.3 GB
+
+    # ---- (i') apgd_sc on the same ensemble, fused, then eager --------------
+    del rr_runs, op_rr                                # they held 12.3 GB
+    torch.cuda.empty_cache()
+    sop = SpectralDense(As, *estimate_spectral_bounds(As, iters=32))
+    cfg_sc = APGDSCConfig(tol=TOL, max_matvecs=BUDGET)
+    zero_counts()
+    run_mode("box apgd_sc", lambda b: run_box_apgd_sc(sop, b, diag, proj, cfg_sc), As, bs,
+             x_uncon, gen, dense_sweep_bytes(B_ITER, N, 1), SWEEPS_APGD, lambda: gemv.LAUNCHES)
+    require_fused("box apgd_sc")
+    gemv_launches += gemv.LAUNCHES
+    sc_box_fused = apgd.SC_STEPS_FUSED
+    zero_counts()
+    # A trace keeps the eager body: the end-to-end gain of the step.
+    cfg_eager = dataclasses.replace(cfg_sc, trace_len=1)
+    run_mode("box apgd_sc eager", lambda b: run_box_apgd_sc(sop, b, diag, proj, cfg_eager),
+             As, bs, x_uncon, gen, dense_sweep_bytes(B_ITER, N, 1), SWEEPS_APGD,
+             lambda: gemv.LAUNCHES)
+    require(apgd.SC_STEPS_FUSED == 0 and apgd.SC_STEPS_EAGER > 0,
+            f"box apgd_sc eager: {apgd.SC_STEPS_FUSED} fused iterations")
+    gemv_launches += gemv.LAUNCHES
+    sc_box = check_sc_step(As, bs, proj)
+    print_sc_step("box", sc_box, sc_box_fused)
+    sc_box["launches"] = sc_box_fused
+    zero_counts()
+    del As, As16, bs, x_uncon, diag, r_apgd, sop
     torch.cuda.empty_cache()
 
     # ---- direct serving mode -----------------------------------------------
@@ -1547,7 +1684,11 @@ def main():
              As, bs, None, gen, dense_sweep_bytes(B_CONE, N_CONE, 1), 14,
              lambda: gemv.LAUNCHES, tol=TOL_CONE, proj64=proj64_cone)
     require(not any(symv.LAUNCHES.values()), "cone run (a) launched a symv kernel")
-    cone_launches = gemv.LAUNCHES
+    require_fused("cone run (a)")
+    cone_launches, sc_fused = gemv.LAUNCHES, apgd.SC_STEPS_FUSED
+    sc_999 = check_sc_step(As, bs, proj_cone)
+    print_sc_step("cone", sc_999, sc_fused)
+    sc_999["launches"] = sc_fused
     zero_counts()
     run_mode("cone mprgp_bb", lambda b: run_cone_mprgp(
                  As, b, diag, proj_cone, MPRGPBBConfig(tol=TOL_CONE, max_matvecs=BUDGET_CONE)),
@@ -1941,7 +2082,11 @@ def main():
         *({"name": name, "route": "cuda", "source": symv_src,
            "replaces": f"ccqppy_tpu/ops/pallas_kernels.py:{line}",
            "launches": path_launches[name], **measured_symv[name]}
-          for name, line in symv_lines.items())]}))
+          for name, line in symv_lines.items()),
+        {"name": "apgd_sc_step", "route": "cuda",
+         "source": "ccqppy_tpu_torch/csrc/apgd_sc_step.cu", "replaces": None, **sc_999},
+        {"name": "apgd_sc_step.box", "route": "cuda",
+         "source": "ccqppy_tpu_torch/csrc/apgd_sc_step.cu", "replaces": None, **sc_box}]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the start of main")
     print(smi)
     print(json.dumps({"ok": True, "device": {
