@@ -15,7 +15,10 @@ f64:
   readings of sound runs and of the TF32 control.
 
 The flag a lane reports does not matter here: an unconverged lane is judged
-as any other.  A number whose limit is missing fails.
+as any other.  A number whose limit is missing fails.  The lanes go to f64
+in chunks of ``chunk_lanes(n)``: 128 up to n = 1000, fewer above (one at
+n = 9999, 0.8 GB).  The reference steps a chunk until its slowest lane is
+done, so the chunk's size is part of every reading.
 """
 from __future__ import annotations
 
@@ -28,8 +31,14 @@ import torch
 from qpbench import traffic
 from qpbench.reference import sets, solve
 
-CHUNK = 128       # lanes in f64 at once (1 GB at n = 1000)
-REF_TOL = 1e-10   # the reference optimum's own Eq. 25 residual
+CHUNK = 128                   # lanes in f64 at once, at most
+BUDGET = CHUNK * 1000 ** 2 * 8   # bytes of A in f64 at once (1 GB: 128 lanes at n = 1000)
+REF_TOL = 1e-10               # the reference optimum's own Eq. 25 residual
+
+
+def chunk_lanes(n):
+    """Lanes of an (n, n) ensemble the check holds in f64 at once."""
+    return min(CHUNK, max(1, BUDGET // (n * n * 8)))
 
 
 def limits(config, cell_checks):
@@ -64,9 +73,10 @@ def judge(config, cell_checks, A, b0, seed, noise, records):
     lanes, b = torch.cat(lanes), torch.cat(bs)
     x = torch.from_numpy(np.stack(xs)).to(device=device, dtype=torch.float64)
     res, gap, ref_res, ref_steps = [], [], [], 0
-    for i in range(0, x.shape[0], CHUNK):
-        A64 = A.index_select(0, lanes[i:i + CHUNK]).double()
-        xi, bi = x[i:i + CHUNK], b[i:i + CHUNK]
+    chunk = chunk_lanes(A.shape[-1])
+    for i in range(0, x.shape[0], chunk):
+        A64 = A.index_select(0, lanes[i:i + chunk]).double()
+        xi, bi = x[i:i + chunk], b[i:i + chunk]
         res.append(sets.pg_residual(spec, xi, solve.bmv(A64, xi) + bi, gd, **tols))
         x_ref, r_ref, steps = solve.solve(A64, bi, spec, gd, tol=REF_TOL)
         gap.append(torch.linalg.vector_norm(xi - x_ref, dim=-1)

@@ -5,6 +5,15 @@ writes y once, ``(n^2 + 2 n) x element`` bytes, and takes ``2 n^2`` FLOPs.
 The sweeps a call needs are the lanes' reported matvecs plus the sweeps the
 path leaves out of that count (an entry's ``UNCOUNTED_SWEEPS`` a lane), so
 the work is what these inputs need, not what a batched loop sweeps in all.
+A sweep of a bf16 copy of A counts its elements at two bytes.
+
+One launch of the fused ``apgd_sc`` step runs every lane of (B, n).  A
+live lane's plain step reads ``A v``, b, x and y and writes x, y and v:
+seven vectors of n elements; its verifying step reads no y: six.  A done
+lane reads x or y and writes v: two.  The set's own data (cone mu, box
+bounds) is not counted.  Its ~40 operations an element bound it far below
+its bytes.
+
 The peaks are the published ones of the card's name (``peaks.json``).
 """
 from __future__ import annotations
@@ -12,8 +21,9 @@ from __future__ import annotations
 import json
 from pathlib import Path
 
-ELEMENT_BYTES = {"float32": 4, "float64": 8}
-FLOPS_KEY = {"float32": "f32_flops_per_s", "float64": "f64_flops_per_s"}
+ELEMENT_BYTES = {"float32": 4, "float64": 8, "bfloat16": 2}
+FLOPS_KEY = {"float32": "f32_flops_per_s", "float64": "f64_flops_per_s",
+             "bfloat16": "bf16_flops_per_s"}
 PEAKS = Path(__file__).resolve().parent / "peaks.json"
 
 
@@ -24,6 +34,13 @@ def sweep_bytes(n, sweeps, dtype="float32"):
 
 def sweep_flops(n, sweeps):
     return float(sweeps) * 2.0 * n * n
+
+
+def sc_step_bytes(n, live, done, verifying=0, dtype="float32"):
+    """Bytes the fused ``apgd_sc`` step moves over ``live`` lane-steps on
+    lanes still running, ``verifying`` of them verifying steps, and ``done``
+    lane-steps on lanes already done."""
+    return float(7 * live - verifying + 2 * done) * n * ELEMENT_BYTES[dtype]
 
 
 def peaks(kind):

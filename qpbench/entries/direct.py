@@ -9,6 +9,7 @@ from __future__ import annotations
 from types import SimpleNamespace
 
 from qpbench.entries import _port
+from qpbench.entries._program import counters  # noqa: F401  (read by the harness)
 
 from ccqppy_tpu_torch.models.direct import direct_x0, spd_inverse_batch
 from ccqppy_tpu_torch.parallel import batch

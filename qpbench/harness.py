@@ -11,8 +11,11 @@ The window: one caller in a closed loop for ``seconds``.  Call k draws its
 right-hand sides on the device from ``(seed, k)`` (``traffic.call_rhs``),
 calls the entry, and ends when the answers (x, the converged flags, the
 matvec counts) are in pinned host buffers.  Every call's wall is kept.
-A traced run (``--trace 1``) adds, after that unprofiled window, the
-mix's ``profiled_calls`` calls under ``torch.profiler``.
+Where the entry exposes the program's ``counters()``, they are read once
+before a stretch of calls starts its clock and once after its seconds are
+taken, and the stretch keeps their gains.  A traced run (``--trace 1``)
+adds, after that unprofiled window, the mix's ``profiled_calls`` calls
+under ``torch.profiler``.
 
 After the window: the peak memory is read, the program's state is freed,
 the import check runs again, and the sampled answers go through the check
@@ -47,6 +50,7 @@ class Part:
     matvecs: list = field(default_factory=list)    # (lanes,) int32 a call
     converged: int = 0
     lanes: int = 0
+    counters: dict | None = None   # the program's counters' gains; None without
 
 
 @dataclass
@@ -61,14 +65,16 @@ class Record:
     peak_bytes: int | None         # device memory peak of the window
     profiled: Part | None = None   # the profiled calls (traced runs)
     trace: trace.TraceSummary | None = None
+    events: list | None = None     # the profiled calls' profiler events (traced runs)
 
 
 class Caller:
     """The closed loop: draw b, call the entry, fetch the answers."""
 
-    def __init__(self, entry, state, b0, seed, noise, sampler):
+    def __init__(self, entry, state, b0, seed, noise, sampler, counters=None):
         self.entry, self.state, self.b0 = entry, state, b0
         self.seed, self.noise, self.sampler = seed, noise, sampler
+        self.counters = counters
         self.k = 0
         B, n = b0.shape
         pin = b0.device.type == "cuda"
@@ -91,6 +97,7 @@ class Caller:
     def run(self, seconds=None, calls=None):
         """Calls until ``seconds`` have passed or ``calls`` were made."""
         part, k0 = Part(), self.k
+        before = self.counters() if self.counters else None
         t_start = time.perf_counter()
         while True:
             if seconds is not None and time.perf_counter() - t_start >= seconds:
@@ -113,6 +120,8 @@ class Caller:
             self.sampler.offer(self.k, x, conv, mv)
             self.k += 1
         part.window_s = time.perf_counter() - t_start
+        if before is not None:
+            part.counters = {k: v - before[k] for k, v in self.counters().items()}
         return part
 
 
@@ -130,8 +139,9 @@ def _profile(caller, calls, device):
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
         part = caller.run(calls=calls)
-    dev, host = trace.profiler_events(prof)
-    return part, trace.summarize(dev, host, calls)
+    events = prof.events()
+    dev, host = trace.profiler_events(events)
+    return part, trace.summarize(dev, host, calls), list(events)
 
 
 class SetupClock:
@@ -155,13 +165,14 @@ class SetupClock:
 
 
 def run_cell(workload, seed, seconds, traced, device="cuda", registry=None, t0=None,
-             shrink=None, entry=None, imported=None):
+             shrink=None, entry=None, imported=None, keep=None):
     """Run the cell once; returns (result line as a dict, the check's lines).
 
     ``t0`` is the start of set-up (the process's start) and ``imported`` the
     time torch had been imported by, when the caller took it.  ``shrink``
     (sizes) and ``entry`` (a module in the mix's entry's place: the
-    control, or a broken program) are for tests and readings only."""
+    control, or a broken program) are for tests and readings only, as is
+    ``keep``: a list that receives the run's ``Record``."""
     t0 = time.perf_counter() if t0 is None else t0
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
@@ -191,7 +202,8 @@ def run_cell(workload, seed, seconds, traced, device="cuda", registry=None, t0=N
     state = entry.prepare(SimpleNamespace(A=A, b0=b0, config=config, device=device), mix)
     clock.lap("prepare")
     sampler = traffic.Sampler(mix["sample"], seed)
-    caller = Caller(entry, state, b0, seed, float(mix["noise"]), sampler)
+    caller = Caller(entry, state, b0, seed, float(mix["noise"]), sampler,
+                    counters=getattr(entry, "counters", None))
     caller.warm_up()
     clock.lap("warm_up")
     cuda = device.type == "cuda"
@@ -200,9 +212,9 @@ def run_cell(workload, seed, seconds, traced, device="cuda", registry=None, t0=N
     setup_s = time.perf_counter() - t0
 
     window = caller.run(seconds=seconds)
-    profiled = summary = None
+    profiled = summary = events = None
     if traced:
-        profiled, summary = _profile(caller, int(mix["profiled_calls"]), device)
+        profiled, summary, events = _profile(caller, int(mix["profiled_calls"]), device)
     peak = torch.cuda.max_memory_allocated(device) if cuda else None
     del caller, state
     gc.collect()
@@ -217,7 +229,10 @@ def run_cell(workload, seed, seconds, traced, device="cuda", registry=None, t0=N
     kind = torch.cuda.get_device_name(device) if cuda else "cpu"
     rec = Record(config=config, mix=mix, setup_s=setup_s,
                  window=window, uncounted_sweeps=int(getattr(entry, "UNCOUNTED_SWEEPS", 0)),
-                 device_kind=kind, peak_bytes=peak, profiled=profiled, trace=summary)
+                 device_kind=kind, peak_bytes=peak, profiled=profiled, trace=summary,
+                 events=events)
+    if keep is not None:
+        keep.append(rec)
     metrics = {}
     for m in wanted:
         value = readers[m["name"]].read(rec)

@@ -9,13 +9,27 @@ name under the benchmark's folder:
 * ``mixes/<traffic>.json``: the call stream (entry, lanes a call, noise,
   the entry's parameters, the sample the check takes);
 * ``entries/<entry>.py``: the call path, ``prepare(inputs, mix)`` and
-  ``call(state, b)``; the only files that import the program;
-* ``metrics/<metric>.py``: one reader per metric, ``read(record)``; a
-  metric split by cells (``solves_per_s.host_bound``) shares its stem's;
+  ``call(state, b)``, and optionally ``counters()``, the program's
+  counters as they stand (``entries/_program.counters``), whose gains over
+  each stretch of calls the record keeps; the only files that import the
+  program;
+* ``metrics/<metric>.py``: one reader per metric, ``read(record)``, which
+  returns None where it finds nothing to read; a metric split by cells
+  (``solves_per_s.host_bound``) shares its stem's.  Besides the calls'
+  walls and matvecs, a reader finds the counters' gains in
+  ``rec.window.counters`` (and ``rec.profiled.counters``), and in a traced
+  run each kernel's device seconds and launches by name
+  (``rec.trace.kernel_s``, ``rec.trace.kernel_launches``), the merged
+  intervals of each of the program's spans (``rec.trace.spans``) and the
+  device's idle intervals (``rec.trace.idle``); ``trace.merged`` and
+  ``trace.overlap`` combine them, ``counts`` holds the bytes and FLOPs;
 * ``checks/<cell>.json``: the limits of the numbers the check compares
   that the configuration does not state itself.
 
-Adding a cell adds files and entries; no file here changes.
+A configuration's file states what was cut from its source in ``reduced``
+(keys, as in ``BENCHMARK.json``).  Adding a configuration, its cells, its
+counters, its spans and its kernels' rooflines adds files and entries; no
+file here changes.
 """
 from __future__ import annotations
 

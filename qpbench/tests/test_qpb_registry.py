@@ -1,11 +1,12 @@
 """BENCHMARK.json against the contract, and every name found as a file."""
 import json
+import math
 import re
 import shutil
 
 import pytest
 
-from qpbench import harness
+from qpbench import harness, trace
 from qpbench.registry import ROOT, Registry
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -36,7 +37,10 @@ def test_configs_cells_and_metrics_follow_the_rules():
         assert NAME.match(c["name"]) and one_line(c["source"]) and one_line(c["why"])
         assert c["file"] == f"qpbench/configs/{c['name']}.json"
         cfg = reg.config(c["name"])
-        assert cfg["source"] == c["source"] and cfg["reduced"] == c["reduced"] == []
+        # What was cut from the source: keys, the same in both files.
+        assert cfg["source"] == c["source"] and cfg["reduced"] == c["reduced"]
+        assert isinstance(c["reduced"], list) and len(c["reduced"]) <= 16
+        assert all(one_line(k, 64) and NAME.match(k) for k in c["reduced"])
         names.add(c["name"])
     pairs = set()
     for w in SPEC["workloads"]:
@@ -105,24 +109,43 @@ def test_a_split_metric_reads_with_its_stems_reader_unless_it_has_its_own(tmp_pa
         reg.reader("no_such_metric.host_bound")
 
 
-def test_a_cell_is_added_by_files_and_entries_alone(tmp_path, tiny):
+#: A throwaway counter reader and per-kernel reader, added as files.
+SYNC_READER = """def read(rec):
+    c = rec.window.counters
+    return None if c is None else float(c["host_syncs"])
+"""
+KERNEL_READER = """def read(rec):
+    if rec.trace is None:
+        return None
+    return 1e3 * sum(s for k, s in rec.trace.kernel_s.items() if "apgd_sc_step" in k)
+"""
+
+
+def test_a_cell_is_added_by_files_and_entries_alone(tmp_path, tiny, monkeypatch):
     """A throwaway mix (the box iterative path at another phase-1 budget and
-    bucket, and a metric of its own) runs through the unchanged harness
-    from a copy of the benchmark that only gains files and entries."""
+    bucket, and metrics of its own: a count of calls, a reader of the
+    program's counters and one of a kernel's device time) runs through the
+    unchanged harness from a copy of the benchmark that only gains files
+    and entries."""
     shutil.copytree(ROOT / "qpbench", tmp_path / "qpbench",
                     ignore=shutil.ignore_patterns("tests", "__pycache__"))
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
     mix = json.loads((ROOT / "qpbench" / "mixes" / "iterative.json").read_text())
     mix.update(name="throwaway", phase1=7, bucket=4)
     (tmp_path / "qpbench" / "mixes" / "throwaway.json").write_text(json.dumps(mix))
-    (tmp_path / "qpbench" / "metrics" / "bucket_calls.py").write_text(
+    metrics = tmp_path / "qpbench" / "metrics"
+    (metrics / "bucket_calls.py").write_text(
         "def read(rec):\n    return float(len(rec.window.walls))\n")
+    (metrics / "window_syncs.py").write_text(SYNC_READER)
+    (metrics / "step_kernel_ms.py").write_text(KERNEL_READER)
     spec["workloads"].append({"name": "box1000.throwaway", "config": "box1000",
                               "traffic": "throwaway", "chips": 1, "why": "a test"})
     spec["end_to_end"][0]["workloads"].append("box1000.throwaway")
-    spec["per_layer"].append({"name": "bucket_calls", "unit": "calls", "better": "higher",
-                              "source": "host_clock", "layer": "caller", "moves": "solves_per_s",
-                              "workloads": ["box1000.throwaway"]})
+    for name, source in (("bucket_calls", "host_clock"), ("window_syncs", "program_counter"),
+                         ("step_kernel_ms", "device_trace")):
+        spec["per_layer"].append({"name": name, "unit": "x", "better": "higher",
+                                  "source": source, "layer": "caller", "moves": "solves_per_s",
+                                  "workloads": ["box1000.throwaway"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
     reg = Registry(root=tmp_path)
     result, _ = harness.run_cell("box1000.throwaway", 5, 0.2, False, device="cpu",
@@ -131,3 +154,13 @@ def test_a_cell_is_added_by_files_and_entries_alone(tmp_path, tiny):
     result, _ = harness.run_cell("box1000.throwaway", 5, 0.2, True, device="cpu",
                                  registry=reg, shrink=tiny)
     assert result["metrics"]["bucket_calls"]["value"] >= 1
+    assert result["metrics"]["window_syncs"]["value"] >= 1
+    # The CPU has no device trace: the kernel's reader finds nothing, and the
+    # metric is left out.  Given a trace that holds the kernel, it reads.
+    assert "step_kernel_ms" not in result["metrics"]
+    host = [("qpbench.call", 0.0, 1.0), ("qpbench.fetch", 1.0, 1.1)]
+    dev = [("void apgd_sc_step_kernel<float>", 0.2, 0.25), ("add", 0.3, 0.4)]
+    monkeypatch.setattr(trace, "profiler_events", lambda events: (dev, host))
+    result, _ = harness.run_cell("box1000.throwaway", 5, 0.2, True, device="cpu",
+                                 registry=reg, shrink=tiny)
+    assert math.isclose(result["metrics"]["step_kernel_ms"]["value"], 50.0)

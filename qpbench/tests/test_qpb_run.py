@@ -7,6 +7,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -124,7 +125,9 @@ def test_a_broken_timed_path_is_refused(cell, fault, tiny, monkeypatch):
         return x
 
     monkeypatch.setattr(entry, "direct_x0", direct_x0)
-    result, _ = run(cell, tiny)
+    # A window of several calls: in one call the sample can miss the half
+    # of the lanes that was left out.
+    result, _ = run(cell, tiny, seconds=1.0)
     assert not result["correct"] and broken(result["checks"]) and result["failed"] > 0
 
 
@@ -141,8 +144,6 @@ def test_counted_sweeps_never_exceed_the_lanes_the_gemv_is_handed(cell, tiny, mo
     w = reg.workload(cell)
     cfg, mix = harness._shrunk(reg.config(w["config"]), reg.mix(w["traffic"]), tiny)
     entry = reg.entry(mix["entry"])
-    from types import SimpleNamespace
-
     from qpbench import traffic
     A, b0, _ = traffic.ensemble(cfg, mix["lanes"], SEED, torch.device("cpu"))
     state = entry.prepare(SimpleNamespace(A=A, b0=b0, config=cfg, device=torch.device("cpu")), mix)
@@ -191,3 +192,34 @@ def test_the_run_checks_what_is_loaded(tiny, monkeypatch):
     monkeypatch.setitem(sys.modules, "ccqppy_tpu", sys.modules["json"])
     with pytest.raises(harness.ForbiddenImport, match="ccqppy_tpu"):
         run(CELLS[0], tiny)
+
+
+def test_the_window_keeps_the_programs_counter_gains(tiny):
+    """The window's ``host_syncs`` gain is the program counter's own gain
+    over the window's calls; the control, which has no counters, keeps
+    None."""
+    from ccqppy_tpu_torch.models import base
+
+    real = Registry().entry("fused_compact")
+    gains = []
+
+    def call(state, b):
+        before = base.HOST_SYNCS
+        r = real.call(state, b)
+        gains.append(base.HOST_SYNCS - before)
+        return r
+
+    entry = SimpleNamespace(prepare=real.prepare, call=call, counters=real.counters,
+                            UNCOUNTED_SWEEPS=real.UNCOUNTED_SWEEPS)
+    keep = []
+    result, _ = harness.run_cell("box1000.iterative", SEED, 0.3, False, device="cpu",
+                                 registry=TinyLimits(), shrink=tiny, entry=entry, keep=keep)
+    rec = keep[0]
+    assert result["correct"] and len(gains) == len(rec.window.walls) + 1   # the warm-up
+    assert rec.window.counters["host_syncs"] == sum(gains[1:]) > 0
+    # No GEMV kernel and no fused step on the CPU.
+    assert rec.window.counters["gemv_launches"] == rec.window.counters["gemv_lanes_swept"] == 0
+    keep = []
+    harness.run_cell("box1000.iterative", SEED, 0.3, True, device="cpu", registry=TinyLimits(),
+                     shrink=tiny, entry=control, keep=keep)
+    assert keep[0].window.counters is None and keep[0].profiled.counters is None

@@ -16,6 +16,13 @@ Within it:
   innermost host operation or span running at its middle (``LOOP``, the
   caller's own bookkeeping between calls, where none runs), summed by name.
 
+For the readers of single kernels and of the program's own spans it also
+keeps, clipped to the window: each kernel's device seconds and launches by
+its full name (``kernel_s``, ``kernel_launches``); the merged intervals of
+each host span the program names with ``SPAN_PREFIX`` (``spans``, by
+name); and the device's idle intervals (``idle``).  ``merged`` and
+``overlap`` work on such interval lists.
+
 The reduction takes plain lists of ``(name, start_s, end_s)``, so it is
 tested without a card.
 """
@@ -30,18 +37,20 @@ CALL_SPAN = "qpbench.call"
 FETCH_SPAN = "qpbench.fetch"
 DRAW_SPAN = "qpbench.draw"
 GEMV_NAME = "batched_gemv"
+#: The program names its spans ``ccqppy.<stage>`` (``models.base.span``).
+SPAN_PREFIX = "ccqppy."
 TOP = 10
 NAME_CHARS = 120
 LOOP = "caller loop"
 
 
-def profiler_events(prof):
-    """(device ops, host ops) of a finished ``torch.profiler.profile``, each
-    a list of (name, start_s, end_s)."""
+def profiler_events(events):
+    """(device ops, host ops) of a finished ``torch.profiler.profile``'s
+    events (``prof.events()``), each a list of (name, start_s, end_s)."""
     from torch.autograd import DeviceType
 
     dev, host, spans = [], [], {CALL_SPAN, FETCH_SPAN, DRAW_SPAN}
-    for e in prof.events():
+    for e in events:
         item = (e.name, e.time_range.start * 1e-6, e.time_range.end * 1e-6)
         annotation = getattr(e, "is_user_annotation", False)
         if e.device_type == DeviceType.CUDA:
@@ -71,6 +80,18 @@ def merged(intervals):
     return out
 
 
+def overlap(a, b):
+    """Total length shared by two sorted, disjoint lists of intervals."""
+    total, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        total += max(0.0, min(a[i][1], b[j][1]) - max(a[i][0], b[j][0]))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
 @dataclass
 class TraceSummary:
     window_s: float
@@ -80,6 +101,10 @@ class TraceSummary:
     other_kernel_s: float
     device_ops: list      # [[name, seconds]], the TOP largest
     idle_gaps: list       # [[name, seconds]], the TOP largest
+    kernel_s: dict        # kernel name -> device seconds
+    kernel_launches: dict  # kernel name -> launches
+    spans: dict           # program span name -> merged [[start, end]]
+    idle: list            # the device's idle intervals, [[start, end]]
 
     @property
     def idle_share(self):
@@ -139,8 +164,18 @@ def summarize(dev, host, calls):
     for (a, b), name in zip(gaps, labels):
         by_gap[name[:NAME_CHARS]] += b - a
     top = lambda d: [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:TOP]]
+    kernel_s, launches = defaultdict(float), defaultdict(int)
+    for n, s, e in kernels:
+        kernel_s[n] += e - s
+        launches[n] += 1
+    spans = defaultdict(list)
+    for n, s, e in host:
+        if n.startswith(SPAN_PREFIX) and e > w0 and s < w1:
+            spans[n].append((max(s, w0), min(e, w1)))
     return TraceSummary(
         window_s=w1 - w0, busy_s=busy_s, kernels=len(kernels),
         gemv_s=sum(e - s for _, s, e in gemv),
         other_kernel_s=sum(e - s for n, s, e in kernels if GEMV_NAME not in n),
-        device_ops=top(by_op), idle_gaps=top(by_gap))
+        device_ops=top(by_op), idle_gaps=top(by_gap),
+        kernel_s=dict(kernel_s), kernel_launches=dict(launches),
+        spans={n: merged(v) for n, v in spans.items()}, idle=[[a, b] for a, b in gaps])
