@@ -4,10 +4,15 @@
 // (a Pallas grid of (batch, row-tile) steps, each an MXU dot of a VMEM row
 // tile at HIGHEST precision).
 //
-// Three instances, (A, x = y = sums): (f32, f32), (bf16, f32) and (f64,
-// f64).  The TPU kernel has the first two; the JAX package computes an f64
-// GEMV with an XLA dot, and the f64 instance carries it here (the f64
-// DenseOperator and the exact sweep of the f64-exact rung).
+// Four instances, (A, x = y = sums): (f32, f32), (bf16, f32), (f64, f64)
+// and (f32, f64).  The TPU kernel has the first two; the JAX package
+// computes an f64 GEMV with an XLA dot, and the f64 instance carries it
+// here (the f64 DenseOperator and the exact sweep of the f64-exact rung).
+// The last is MPRGP's sweep below f64 (its loop's and its audit's): an f32
+// stack times an f64 x with f64 sums, each product of an f32 element and an
+// f64 value rounded once in the fused multiply-add, so A x of an f32
+// iterate comes out as an f64 audit computes it (up to the order of the f64
+// sums), at the f32 sweep's bytes.
 //
 // What bounds it: device-memory bytes.  Every element of A is read once and
 // used for one multiply-add (2 flops per 4 bytes in f32, per 2 bytes in
@@ -118,7 +123,8 @@ static_assert(RING_OFFSET + 3 * stage_bytes<float, float>(cmax<float>()) <= H100
               RING_OFFSET + 3 * stage_bytes<__nv_bfloat16, float>(cmax<__nv_bfloat16>()) <=
                   H100_SMEM_OPTIN &&
               RING_OFFSET + 3 * stage_bytes<double, double>(cmax<double>()) <=
-                  H100_SMEM_OPTIN,
+                  H100_SMEM_OPTIN &&
+              RING_OFFSET + 3 * stage_bytes<float, double>(cmax<float>()) <= H100_SMEM_OPTIN,
               "three stages of the widest tile fit in a block's shared memory");
 
 // An element of A in the sums' type.
@@ -133,10 +139,15 @@ __device__ __forceinline__ float x_for(float v, __nv_bfloat16) {
   return __bfloat162float(__float2bfloat16(v));
 }
 __device__ __forceinline__ double x_for(double v, double) { return v; }
+__device__ __forceinline__ double x_for(double v, float) { return v; }
 
-// acc + a * b, rounded once.
+// acc + a * b, rounded once; an f32 element of A against f64 sums is
+// widened exactly first.
 __device__ __forceinline__ float madd(float a, float b, float acc) { return fmaf(a, b, acc); }
 __device__ __forceinline__ double madd(double a, double b, double acc) { return fma(a, b, acc); }
+__device__ __forceinline__ double madd(float a, double b, double acc) {
+  return fma((double)a, b, acc);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -422,4 +433,9 @@ extern "C" int batched_gemv_bf16(const void* A, const void* x, void* y,
 extern "C" int batched_gemv_f64(const void* A, const void* x, void* y,
                                 int64_t batch, int64_t n, void* stream) {
   return launch<double, double>(A, x, y, batch, n, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int batched_gemv_f32_f64(const void* A, const void* x, void* y,
+                                    int64_t batch, int64_t n, void* stream) {
+  return launch<float, double>(A, x, y, batch, n, static_cast<cudaStream_t>(stream));
 }

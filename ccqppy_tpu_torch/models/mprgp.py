@@ -24,9 +24,38 @@ iteration.  Values a lane does not select (``x - inf p`` when the feasible
 step is unbounded) may be inf or NaN; every reduction is per lane and
 every select keeps the JAX package's order, so they never reach a
 selected value.
+
+**Below f64** (b in f32; a departure from the JAX package, which sums
+each sweep in b's dtype).  A fresh gradient ``A x + b`` with f32 sums
+carries the rounding of sums of size ``|A x|``, not of the gradient: at
+n = 9999 (``A = G G^T + n I``, ``A x`` near 1e4) that moves the Eq. 25
+residual (a norm over ``3 n``) by a few parts in 1e6, a third of tol
+1e-5.  The loop claims a lane done on the first such reading under tol,
+so its claims audited above tol in f64, and a lane that goes on iterates
+around a point that the rounding, not the QP, fixes.  So below f64:
+
+* every sweep sums in f64 (``LinearOperator.matvec_f64``; on the card the
+  GEMV's (f32 A, f64 x) instance, at the f32 sweep's bytes) and is
+  rounded once; a fresh gradient is ``A v + b`` in f64, rounded once;
+* no lane is reported converged on a residual in b's dtype.  The unfused
+  form's verification sweep, and in the fused form one sweep once every
+  lane is done, is the f64 audit: ``A x + b`` and the residual in f64, on
+  the set with its parameters in f64.  A lane whose audit is under tol
+  is done with the audited residual; one whose audit is not goes on from
+  x with the audited gradient, and the loop runs again.  The fused form's
+  audit is counted in each claimed lane's matvecs (the unfused form's
+  verification sweep was counted already).
+
+In f64 the sweeps and the claims are the JAX package's.
+
+Telemetry: ``MPRGP_ITERS`` counts the loop's iterations on the host (a
+pass of the body, every form), ``MPRGP_AUDITS`` the audit sweeps, and the
+span ``ccqppy.mprgp.iter`` marks an iteration's host work under a
+profiler; none of them reads the device.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import NamedTuple
 
@@ -35,10 +64,17 @@ import torch
 from ccqppy_tpu_torch.models.base import (SolverConfig, any_lane, default_x0,
                                           eps_of, init_trace, lanes,
                                           make_result, pg_residual,
-                                          record_trace, select_lanes,
+                                          record_trace, select_lanes, span,
                                           where_lanes)
-from ccqppy_tpu_torch.ops.linop import as_operator
+from ccqppy_tpu_torch.ops import gemv
+from ccqppy_tpu_torch.ops.linop import DenseOperator, as_operator
 from ccqppy_tpu_torch.ops.projections import identity
+
+#: Passes of either form's loop body in this process, counted on the host.
+MPRGP_ITERS = 0
+#: f64 audit sweeps (``LinearOperator.matvec_f64``) in this process: one a
+#: batch each time they run, every lane swept.
+MPRGP_AUDITS = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +101,116 @@ class MPRGPBBConfig(MPRGPConfig):
 def _bb_step(op, dx, dg, tiny):
     """dx.dx / (dx.dg + tiny), per lane."""
     return op.dot(dx, dx) / (op.dot(dx, dg) + tiny)
+
+
+def _audited(b):
+    """Whether the solve sums its sweeps and audits its claims in f64: b
+    narrower than f64."""
+    return b.dtype != torch.float64
+
+
+def _matvec(op, v, b):
+    """``A v`` in b's dtype; below f64 summed in f64 and rounded once."""
+    if not _audited(b):
+        return op.matvec(v)
+    return op.matvec_f64(v).to(b.dtype)
+
+
+def _sweep(op, v, b):
+    """``(A v, A v + b)`` from one sweep; below f64 both from f64 sums, each
+    rounded to b's dtype once, so a fresh gradient carries the rounding of
+    its own size and not that of ``|A v|``."""
+    if not _audited(b):
+        Av = op.matvec(v)
+        return Av, Av + b
+    Av = op.matvec_f64(v)
+    return Av.to(b.dtype), (Av + b.double()).to(b.dtype)
+
+
+def _f64_set(proj):
+    """The projection with its parameters in f64, for the audit: a copy,
+    since ``.to`` converts a module in place.  (An f32 cone's normal, built
+    from an f32 ``mu``, is off unit length by ~1e-8, and on blocks whose
+    gradient is large that shows in the residual.)"""
+    return copy.deepcopy(proj).to(torch.float64)
+
+
+def _audit(op, proj64, b, x, gd):
+    """The f64 audit of every lane's x: the gradient ``A x + b`` with f64
+    sums from the operator's own entries, and its Eq. 25 residual on the
+    f64 set ``proj64``, both f64."""
+    global MPRGP_AUDITS
+    MPRGP_AUDITS += 1
+    g = op.matvec_f64(x) + b.double()
+    return g, pg_residual(proj64, x.double(), g, gd, op)
+
+
+def _iterate(step, active, s):
+    """One pass of a loop body on the lanes ``active``, counted and marked
+    for the profiler."""
+    global MPRGP_ITERS
+    with span("ccqppy.mprgp.iter"):
+        MPRGP_ITERS += 1
+        return select_lanes(active, step(s), s)
+
+
+def _graphed(op, b):
+    """Whether the fused loop replays its passes as a CUDA graph: b on a card
+    and a dense stack, whose sweeps are counted GEMV launches and whose
+    reductions stay on the device (no collective)."""
+    return b.is_cuda and isinstance(op, DenseOperator)
+
+
+#: Per device: the memory pool of the loop's graphs and the last graph
+#: captured in it.  The last graph is kept until the next is captured: it
+#: keeps the pool alive (a pool whose graphs are all gone cannot take
+#: another), and the next capture reuses its memory, since it is never
+#: replayed again.
+_GRAPH_POOLS = {}
+
+
+def _fused_loop(body, s, graphed):
+    """Pass ``body`` over the lanes not done until every lane is done.  With
+    ``graphed`` the first pass runs eagerly (it warms every kernel) and the
+    rest replay one CUDA graph of a pass (``_replay``)."""
+    while True:
+        active = ~s.done
+        if not any_lane(active):
+            return s
+        s = _iterate(body, active, s)
+        if graphed:
+            return _replay(body, s)
+
+
+def _replay(body, s):
+    """The rest of the loop from state ``s`` as replays of one CUDA graph of a
+    pass, captured on a copy of the state that each replay updates in place:
+    the same kernels on the same values as the eager passes, launched by the
+    device, so a pass costs the host one launch and its flag's read (in
+    place of ~600 launches, the loop's cost at B = 1).  The GEMV counters
+    count each replay's launches (``gemv.graph_capture``)."""
+    global MPRGP_ITERS
+    static = type(s)(*(t.clone() for t in s))
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    pool, _ = _GRAPH_POOLS.get(s.x.device, (None, None))
+    pool = torch.cuda.graph_pool_handle() if pool is None else pool
+    with torch.cuda.stream(stream), gemv.graph_capture() as replayed:
+        # Only this thread's calls are checked: a profiler's threads may
+        # touch the card while a traced call captures.
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        new = select_lanes(~static.done, body(static), static)
+        for dst, src in zip(static, new):
+            dst.copy_(src)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    _GRAPH_POOLS[s.x.device] = (pool, graph)
+    while any_lane(~static.done):
+        with span("ccqppy.mprgp.iter"):
+            MPRGP_ITERS += 1
+            graph.replay()
+            replayed()
+    return static
 
 
 class _State(NamedTuple):
@@ -100,14 +246,14 @@ def _solve(A, b, x0, proj, config, bb_variant):
     fixed_exp = bb_variant and config.expansion == "fixed"
     alpha_bar = lanes(2.0 / op.inf_norm()) if fixed_exp else None
 
-    g_init = op.matvec(x_init) + b
+    _, g_init = _sweep(op, x_init, b)
     res0 = pg_residual(proj, x_init, g_init, config.gd, op)
     if bb_variant:
         alpha_bb0 = torch.zeros_like(res0)   # sentinel: seed on first use
         mv0 = 1
     else:
         # Seeded up front, one counted matvec (no tiny: as the JAX package).
-        alpha_bb0 = op.dot(g_init, g_init) / op.dot(g_init, op.matvec(g_init))
+        alpha_bb0 = op.dot(g_init, g_init) / op.dot(g_init, _matvec(op, g_init, b))
         mv0 = 2
     psi0, _ = proj.free_chopped(x_init, g_init)
     mv = torch.full((B,), mv0, dtype=torch.int32, device=b.device)
@@ -122,7 +268,7 @@ def _solve(A, b, x0, proj, config, bb_variant):
         proportional = op.dot(beta_ch, beta_ch) < gamma2 * op.dot(psi, psi)
 
         # ---- CG or expansion -------------------------------------------
-        Ap = op.matvec(s.p)
+        Ap = _matvec(op, s.p, b)
         mv_ce = s.mv + 1
         pAp = op.dot(s.p, Ap) + tiny
         alpha_cg = op.dot(psi, s.p) / pAp
@@ -141,7 +287,7 @@ def _solve(A, b, x0, proj, config, bb_variant):
             x_ex = proj.project(xh - alpha_bar * psih)
         else:
             x_ex = proj.project(xh - lanes(a_cg) * gh)
-        g_ex = op.matvec(x_ex) + b
+        _, g_ex = _sweep(op, x_ex, b)
         psi_ex, _ = proj.free_chopped(x_ex, g_ex)
         a_ex = _bb_step(op, x_ex - s.x, g_ex - s.g, tiny)
         take_cg = alpha_cg <= alpha_f
@@ -152,14 +298,14 @@ def _solve(A, b, x0, proj, config, bb_variant):
         # ---- proportioning: a BB-sized step along the full gradient ------
         if bb_variant:
             seed_needed = s.alpha_bb == 0
-            a_seed = op.dot(s.g, s.g) / (op.dot(s.g, op.matvec(s.g)) + tiny)
+            a_seed = op.dot(s.g, s.g) / (op.dot(s.g, _matvec(op, s.g, b)) + tiny)
             a_hist = _bb_step(op, s.x - s.x_prev, s.g - s.g_prev, tiny)
             a_pp = torch.where(seed_needed, a_seed, a_hist)
             mv_pp = s.mv + seed_needed.to(torch.int32)
         else:
             a_pp, mv_pp = s.alpha_bb, s.mv
         x_pp = proj.project(s.x - lanes(a_pp) * s.g)
-        g_pp = op.matvec(x_pp) + b
+        _, g_pp = _sweep(op, x_pp, b)
         psi_pp, _ = proj.free_chopped(x_pp, g_pp)
         pp = (x_pp, g_pp, psi_pp, _bb_step(op, x_pp - s.x, g_pp - s.g, tiny), mv_pp + 1)
 
@@ -170,6 +316,7 @@ def _solve(A, b, x0, proj, config, bb_variant):
         return _State(x1, g1, p1, a_bb, s.x, s.g, res, mv, s.it + 1, done,
                       record_trace(s.trace, s.it, res))
 
+    proj64 = _f64_set(proj) if _audited(b) else None
     while True:
         outer = ~o.done
         if not any_lane(outer):
@@ -179,20 +326,26 @@ def _solve(A, b, x0, proj, config, bb_variant):
             active = outer & ~s.done
             if not any_lane(active):
                 break
-            s = select_lanes(active, body(s), s)
+            s = _iterate(body, active, s)
         # Verification sweep for every outer-active lane, with the exact
         # matvec (the JAX package uses op.matvec here; the two are the same
-        # for every operator ported so far).
-        g_t = op.matvec_exact(s.x) + b
+        # for every operator ported so far); below f64, the f64 audit.
         mv = s.mv + 1
-        res_t = pg_residual(proj, s.x, g_t, config.gd, op)
+        if proj64 is not None:
+            g64, res64 = _audit(op, proj64, b, s.x, config.gd)
+            g_t, res_t, passed = g64.to(b.dtype), res64.to(b.dtype), res64 < tol
+        else:
+            g_t = op.matvec_exact(s.x) + b
+            res_t = pg_residual(proj, s.x, g_t, config.gd, op)
+            passed = res_t < tol
         psi_t, _ = proj.free_chopped(s.x, g_t)
-        done = (res_t < tol) | (mv >= budget)
+        done = passed | (mv >= budget)
         o = select_lanes(outer, _State(s.x, g_t, psi_t, s.alpha_bb, s.x_prev, s.g_prev,
                                   res_t, mv, s.it, done, s.trace), o)
 
     result = make_result(o.x, o.res, o.mv, o.it, budget, o.trace)
-    # o.res is a fresh-gradient residual on every exit path.
+    # o.res is a fresh-gradient residual on every exit path (the audited one
+    # below f64).
     return dataclasses.replace(result, converged=result.converged & (o.res < tol))
 
 
@@ -217,7 +370,8 @@ def _solve_fused(A, b, x0, proj, config, bb_variant):
     branch chosen per lane by select.  Same iterates and matvec totals as
     the three-branch form, except that the BB seed ``g.g / g.Ag`` is spent
     at init (+1 matvec where the first proportioning step is away from the
-    initial iterate) and an expansion's residual lands one iteration later."""
+    initial iterate) and an expansion's residual lands one iteration later.
+    Below f64 every claim is audited once the loop ends (``_audit_fused``)."""
     op, proj, x_init = _prepare(A, b, x0, proj)
     tiny = eps_of(b)
     gamma2 = config.gamma**2
@@ -226,9 +380,9 @@ def _solve_fused(A, b, x0, proj, config, bb_variant):
     fixed_exp = bb_variant and config.expansion == "fixed"
     alpha_bar = lanes(2.0 / op.inf_norm()) if fixed_exp else None
 
-    g_init = op.matvec(x_init) + b
+    _, g_init = _sweep(op, x_init, b)
     res0 = pg_residual(proj, x_init, g_init, config.gd, op)
-    alpha_bb0 = op.dot(g_init, g_init) / (op.dot(g_init, op.matvec(g_init)) + tiny)
+    alpha_bb0 = op.dot(g_init, g_init) / (op.dot(g_init, _matvec(op, g_init, b)) + tiny)
     psi0, _ = proj.free_chopped(x_init, g_init)
     false = torch.zeros(B, dtype=torch.bool, device=b.device)
     s = _FusedState(x=x_init, g=g_init, p=psi0, x_prev=x_init, g_prev=g_init,
@@ -249,14 +403,14 @@ def _solve_fused(A, b, x0, proj, config, bb_variant):
         br_fin = s.pending | s.verifying
         br_cg_ex = ~br_fin & proportional
         v = where_lanes(br_fin, s.x, where_lanes(br_cg_ex, s.p, x_prop))
-        Av = op.matvec(v)                                   # the one sweep
+        Av, Avb = _sweep(op, v, b)                          # the one sweep
         mv = s.mv + 1
 
         # ---- expansion finish / claim verify: fresh g at x (Av == A x) ----
-        g_fin = Av + b
+        g_fin = Avb
         a_fin = _bb_step(op, s.x - s.x_prev, g_fin - s.g_prev, tiny)
         # ---- proportioning: fresh gradient at x_prop (Av == A x_prop) -----
-        g_pp = Av + b
+        g_pp = Avb
         a_pp = _bb_step(op, dx_prop, g_pp - s.g, tiny)
         # ---- CG / expansion (Av == A p) -----------------------------------
         pAp = op.dot(s.p, Av) + tiny
@@ -310,14 +464,40 @@ def _solve_fused(A, b, x0, proj, config, bb_variant):
         return _FusedState(x1, g1, p1, x_prev1, g_prev1, a1, pending1, verifying1,
                            res, mv, s.it + 1, done, record_trace(s.trace, s.it, res))
 
+    proj64, passed = (_f64_set(proj) if _audited(b) else None), false
+    graphed = _graphed(op, b)
     while True:
-        active = ~s.done
-        if not any_lane(active):
+        s = _fused_loop(body, s, graphed)
+        if proj64 is None:
             break
-        s = select_lanes(active, body(s), s)
-    # Every converged exit carries a fresh-gradient residual; budget exits
-    # are unconverged by the mv < max semantics.
+        s, resumed, passed = _audit_fused(op, proj, proj64, b, s, config, passed)
+        if not any_lane(resumed):
+            break
+    # Every converged exit carries a fresh-gradient residual (the audited one
+    # below f64); budget exits are unconverged by the mv < max semantics.
     return make_result(s.x, s.res, s.mv, s.it, budget, s.trace)
+
+
+def _audit_fused(op, proj, proj64, b, s, config, passed):
+    """Audit the fused loop's claims in f64, once every lane is done.  A
+    claimed lane (done with its residual under tol and matvecs left, not
+    ``passed`` an audit already) is charged the sweep and takes the audited
+    residual; one whose audit is not under tol and that has matvecs left is
+    resumed from x with the audited gradient in b's dtype and its free part
+    as the direction.  Returns the state, the resumed lanes and the lanes
+    that have passed an audit."""
+    budget = config.max_matvecs
+    claimed = s.done & ~passed & (s.res < config.tol) & (s.mv < budget)
+    g64, res64 = _audit(op, proj64, b, s.x, config.gd)
+    under = res64 < config.tol
+    mv = s.mv + claimed.to(s.mv.dtype)
+    resumed = claimed & ~under & (mv < budget)
+    g = g64.to(b.dtype)
+    psi, _ = proj.free_chopped(s.x, g)
+    return (s._replace(g=where_lanes(resumed, g, s.g), p=where_lanes(resumed, psi, s.p),
+                       res=where_lanes(claimed, res64.to(s.res.dtype), s.res), mv=mv,
+                       done=s.done & ~resumed),
+            resumed, passed | (claimed & under))
 
 
 def solve(A, b, x0=None, proj=None, config: MPRGPConfig = MPRGPConfig()):

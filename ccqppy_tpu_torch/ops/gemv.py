@@ -7,11 +7,12 @@ CUDA tensor the wrapper launches the hand-written Hopper kernel
 version ``batched_gemv_reference``.  No other path exists: a CUDA tensor
 never falls back to the plain version.
 
-The kernel has three instances, one for each pair (A, x) a path runs:
-(f32, f32) and (bf16, f32), the TPU kernel's, and (f64, f64), the f64
+The kernel has four instances, one for each pair (A, x) a path runs:
+(f32, f32) and (bf16, f32), the TPU kernel's; (f64, f64), the f64
 ``DenseOperator`` and the exact sweep of the f64-exact rung (an XLA dot in
-the JAX package).  f32 or bf16 A with f64 x is on no path and has no
-instance: on CUDA it raises.
+the JAX package); and (f32, f64), an f32 stack against an f64 x with f64
+sums, MPRGP's sweeps and audits of an f32 solve (``LinearOperator.matvec_f64``).
+bf16 A with f64 x is on no path and has no instance: on CUDA it raises.
 
 The kernel takes any n and any base alignment of A and x through one
 code path, so the TPU package's ``padded_batched_gemv`` (padding n to a
@@ -19,12 +20,15 @@ multiple of 128) has no counterpart here.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ccqppy_tpu_torch.ops import kernels
 
 #: Number of kernel launches in this process.  Only a CUDA launch adds to
-#: it; the plain version on the CPU does not.
+#: it; the plain version on the CPU does not.  A launch captured in a CUDA
+#: graph counts once a replay (``graph_capture``).
 LAUNCHES = 0
 #: The bf16 launches among ``LAUNCHES`` (the cheap sweeps of ``CastDense``
 #: and ``MixedPrecDense``).
@@ -32,13 +36,16 @@ LAUNCHES_BF16 = 0
 #: The f64 launches among ``LAUNCHES`` (f64 ``DenseOperator``, the exact
 #: sweep of the f64-exact rung).
 LAUNCHES_F64 = 0
+#: The (f32 A, f64 x) launches among ``LAUNCHES`` (MPRGP's sweeps below f64).
+LAUNCHES_F32_F64 = 0
 #: Lanes of A the launches among ``LAUNCHES`` streamed: B a launch.
 LANES_SWEPT = 0
 
 #: (A dtype, x dtype) -> the kernel instance that takes them; y has x's dtype.
 INSTANCES = {(torch.float32, torch.float32): "batched_gemv_f32",
              (torch.bfloat16, torch.float32): "batched_gemv_bf16",
-             (torch.float64, torch.float64): "batched_gemv_f64"}
+             (torch.float64, torch.float64): "batched_gemv_f64",
+             (torch.float32, torch.float64): "batched_gemv_f32_f64"}
 
 
 def batched_gemv_reference(A, x):
@@ -65,14 +72,14 @@ def _check(A, x):
 
 def _check_kernel_operands(A, x):
     """What the CUDA kernel takes beyond ``_check``: a pair of ``INSTANCES``
-    (f32 A and x, bf16 A and f32 x, f64 A and x), both contiguous (at any
-    storage offset)."""
+    (f32 A and x, bf16 A and f32 x, f64 A and x, f32 A and f64 x), both
+    contiguous (at any storage offset)."""
     if (A.dtype, x.dtype) not in INSTANCES:
-        if A.dtype in (torch.float32, torch.bfloat16) and x.dtype == torch.float64:
+        if A.dtype == torch.bfloat16 and x.dtype == torch.float64:
             raise TypeError(f"the CUDA kernel has no instance for {A.dtype} A with float64 x: "
                             "that pair is on no path (ROADMAP, queue 2)")
-        raise TypeError(f"the CUDA kernel takes f32 A and x, bf16 A with f32 x, or f64 A "
-                        f"and x, not {A.dtype} A with {x.dtype} x")
+        raise TypeError(f"the CUDA kernel takes f32 A and x, bf16 A with f32 x, f64 A and "
+                        f"x, or f32 A with f64 x, not {A.dtype} A with {x.dtype} x")
     if not (A.is_contiguous() and x.is_contiguous()):
         raise ValueError("the CUDA kernel takes contiguous A and x")
 
@@ -84,7 +91,6 @@ def batched_gemv(A, x):
     runs on the current stream and y has x's dtype.  On the CPU: the plain
     version, in any floating dtype.
     """
-    global LAUNCHES, LAUNCHES_BF16, LAUNCHES_F64, LANES_SWEPT
     _check(A, x)
     if A.device.type == "cpu":
         return batched_gemv_reference(A, x)
@@ -101,10 +107,38 @@ def batched_gemv(A, x):
         err = fn(A.data_ptr(), x.data_ptr(), y.data_ptr(), B, n, stream)
     if err != 0:
         raise RuntimeError(f"batched_gemv kernel launch failed with CUDA error {err}")
+    if _captured is None:
+        _count(A.dtype, x.dtype, B)
+    else:
+        _captured.append((A.dtype, x.dtype, B))
+    return y
+
+
+def _count(a_dtype, x_dtype, B):
+    """Count one launch of the instance for (a_dtype, x_dtype) over B lanes."""
+    global LAUNCHES, LAUNCHES_BF16, LAUNCHES_F64, LAUNCHES_F32_F64, LANES_SWEPT
     LAUNCHES += 1
     LANES_SWEPT += B
-    if A.dtype == torch.bfloat16:
+    if a_dtype == torch.bfloat16:
         LAUNCHES_BF16 += 1
-    elif A.dtype == torch.float64:
+    elif a_dtype == torch.float64:
         LAUNCHES_F64 += 1
-    return y
+    elif x_dtype == torch.float64:
+        LAUNCHES_F32_F64 += 1
+
+
+#: The launches recorded by the CUDA graph capture in progress, or None.
+_captured = None
+
+
+@contextlib.contextmanager
+def graph_capture():
+    """Around a CUDA graph's capture: the launches ``batched_gemv`` records
+    there run only when the graph replays, so they are not counted; the
+    function yielded counts them once, for one replay."""
+    global _captured
+    _captured = taken = []
+    try:
+        yield lambda: [_count(*launch) for launch in taken]
+    finally:
+        _captured = None

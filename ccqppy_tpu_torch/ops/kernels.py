@@ -35,6 +35,7 @@ SIGNATURES = {
     "batched_gemv_f32": (_P, _P, _P, _I64, _I64, _P),
     "batched_gemv_bf16": (_P, _P, _P, _I64, _I64, _P),
     "batched_gemv_f64": (_P, _P, _P, _I64, _I64, _P),
+    "batched_gemv_f32_f64": (_P, _P, _P, _I64, _I64, _P),
     "batched_symv_packed_f32": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
     "batched_symv_full_f32": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
     "apgd_sc_step_lorentz_f32": (*_STEP, _P, _I64, _I64, *_STEP_TAIL),

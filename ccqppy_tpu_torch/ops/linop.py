@@ -64,6 +64,13 @@ class LinearOperator:
         """Full-precision matvec; ``matvec`` itself for exact operators."""
         return self.matvec(x)
 
+    def matvec_f64(self, x):
+        """``A x`` with f64 sums over the operator's own entries, whatever
+        x's dtype: the exact matvec of x widened to f64 (on an f32 dense
+        stack, the GEMV kernel's (f32 A, f64 x) instance).  The audit of an
+        iterate that carries less precision than its check."""
+        return self.matvec_exact(x.to(torch.float64))
+
     def spectral_bounds(self):
         """(L, mu) with L >= lambda_max(A); mu unknown by default."""
         return self.inf_norm(), None

@@ -159,9 +159,10 @@ check at full width,
 audit every lane's true residual in f64 independently of the kernels (the
 plain GEMV of the dense stack; for (k) the plain f64 block-sparse matvec),
 and check that the kernels carried each mode (launch counts are zeroed
-just before a mode and read just after it; ``gemv.LAUNCHES_BF16`` and
-``gemv.LAUNCHES_F64`` count the bf16 and f64 launches among
-``gemv.LAUNCHES``).  Any failed check
+just before a mode and read just after it; ``gemv.LAUNCHES_BF16``,
+``gemv.LAUNCHES_F64`` and ``gemv.LAUNCHES_F32_F64`` count the bf16, f64
+and (f32 A, f64 x) launches among ``gemv.LAUNCHES``, the last those of
+every sweep of an f32 MPRGP solve, graph replays included).  Any failed check
 raises, so the exit code is non-zero.  The last line of standard output is
 one JSON object naming the device.
 
@@ -322,6 +323,13 @@ GEMV_F32_TOL = 1e-5    # max|y - y_ref| / max|y_ref| against the f64 plain versi
 GEMV_BF16_TOL = 2e-2   # bf16 A against the f64 GEMV of the f32 A (quantization)
 GEMV_BF16_PLAIN_TOL = 1e-5  # bf16 kernel against the plain bf16 version
 GEMV_F64_TOL = 1e-13   # f64 kernel against the plain f64 version (the sums' order)
+# (f32 A, f64 x) kernel against the plain f64 version: f64 rounding of sums
+# over up to 9,999 terms.
+GEMV_F32_F64_TOL = 1e-12
+# (B, n) of the (f32 A, f64 x) checks: a ragged width, the large cone's
+# single QP (the n=9999 study and qpbench's cone9999 cell) and the cone
+# mode's ensemble (its MPRGP-BB run).
+F32_F64_SHAPES = ((3, 37), (1, 9999), (1024, 999))
 # (A, x) storage offsets in elements of the GEMV's bitwise check.
 GEMV_OFFSETS = ((1, 0), (2, 3), (3, 1), (0, 2))
 PAIR_ROUNDS = 10       # interleaved rounds of kernel, then plain version
@@ -346,7 +354,7 @@ def require(ok, msg):
 
 def zero_counts():
     """Set every kernel's launch count to 0, just before a mode runs."""
-    gemv.LAUNCHES = gemv.LAUNCHES_BF16 = gemv.LAUNCHES_F64 = 0
+    gemv.LAUNCHES = gemv.LAUNCHES_BF16 = gemv.LAUNCHES_F64 = gemv.LAUNCHES_F32_F64 = 0
     sc_step.LAUNCHES = apgd.SC_STEPS_FUSED = apgd.SC_STEPS_EAGER = 0
     symv.LAUNCHES.update(dict.fromkeys(symv.LAUNCHES, 0))
     COLLECTIVES.update(dict.fromkeys(COLLECTIVES, 0))
@@ -715,8 +723,8 @@ def collectives_line(counts, iterations):
 
 
 def f32_launches():
-    """The f32 GEMV launches among ``gemv.LAUNCHES``."""
-    return gemv.LAUNCHES - gemv.LAUNCHES_F64 - gemv.LAUNCHES_BF16
+    """The (f32 A, f32 x) GEMV launches among ``gemv.LAUNCHES``."""
+    return gemv.LAUNCHES - gemv.LAUNCHES_F64 - gemv.LAUNCHES_BF16 - gemv.LAUNCHES_F32_F64
 
 
 def readme_qp(dev):
@@ -794,8 +802,8 @@ def bound(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
 
 def gemv_bound(A, x):
     """A and x read once, y (x's dtype) written once; 2 FLOPs per element
-    of A, at the f64 rate for an f64 A."""
-    peak = PEAK_F64_FLOPS if A.dtype == torch.float64 else PEAK_F32_FLOPS
+    of A, at the f64 rate where A or x (and so the sums) is f64."""
+    peak = PEAK_F64_FLOPS if torch.float64 in (A.dtype, x.dtype) else PEAK_F32_FLOPS
     return bound(A.numel() * A.element_size() + 2 * x.numel() * x.element_size(),
                  2 * A.numel(), peak)
 
@@ -944,6 +952,50 @@ def check_kernel_f64(gen, dev):
             check_offsets(f"gemv f64 B={B} n={n}", A, x, y)
     require(gemv.LAUNCHES_F64 > before, "the f64 checks launched no f64 GEMV")
     return measured
+
+
+def check_kernel_f32_f64(gen, dev):
+    """The GEMV's (f32 A, f64 x) instance, every sweep of an f32 MPRGP solve,
+    against the plain f64 version on the card at F32_F64_SHAPES (rel err <=
+    GEMV_F32_F64_TOL, two launches bitwise equal, bitwise at the storage
+    offsets GEMV_OFFSETS with NaN around A and x, each launch counted in
+    ``LAUNCHES_F32_F64`` and in no other instance's count); returns its
+    measurements at the two full shapes.  x carries bits below f32's, so a
+    kernel that rounded it to f32 would fail."""
+    out = {}
+    for B, n in F32_F64_SHAPES:
+        A = torch.randn((B, n, n), generator=gen, device=dev)
+        x = torch.randn((B, n), generator=gen, device=dev, dtype=torch.float64)
+        x = x * (1 + 2.0**-30)
+        before = (gemv.LAUNCHES, gemv.LAUNCHES_F32_F64, gemv.LAUNCHES_F64, f32_launches())
+        y = gemv.batched_gemv(A, x)
+        after = (gemv.LAUNCHES, gemv.LAUNCHES_F32_F64, gemv.LAUNCHES_F64, f32_launches())
+        require([a - b for a, b in zip(after, before)] == [1, 1, 0, 0],
+                f"(f32, f64) gemv (B={B}, n={n}) counted as {before} -> {after}")
+        require(y.dtype == torch.float64, f"(f32, f64) gemv returned {y.dtype}")
+        require(torch.equal(bits(gemv.batched_gemv(A, x)), bits(y)),
+                f"(f32, f64) gemv (B={B}, n={n}): two launches differ")
+        ref = gemv.batched_gemv_reference(A, x)
+        err = rel_err(y, ref)
+        print(f"gemv (f32, f64) B={B} n={n}: rel err vs plain f64 {err:.3e}")
+        require(err <= GEMV_F32_F64_TOL, f"(f32, f64) gemv (B={B}, n={n}) rel err {err}")
+        check_offsets(f"gemv (f32, f64) B={B} n={n}", A, x, y)
+        if n != 37:
+            ms = device_ms(lambda: gemv.batched_gemv(A, x))
+            # The plain version widens A to f64 in each call.
+            plain_ms = device_ms(lambda: gemv.batched_gemv_reference(A, x))
+            bound_ms, bound_by = gemv_bound(A, x)
+            print(f"gemv (f32, f64) (B={B}, n={n}): kernel {ms:.4f} ms "
+                  f"({(A.numel() * 4 + x.numel() * 16) / ms / 1e6:.1f} GB/s), plain "
+                  f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), kernel at "
+                  f"{100 * bound_ms / ms:.1f}% of it")
+            out[f"B{B}_n{n}"] = {"B": B, "n": n, "max_rel_err": err,
+                                 "max_abs_err": float((y - ref).abs().max()), "ms": ms,
+                                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                 "bound_by": bound_by}
+        del A, x, y, ref
+        torch.cuda.empty_cache()
+    return out
 
 
 def gemv_pairs(gen, dev):
@@ -1330,7 +1382,8 @@ def q_path(name, fn, kinds):
     fn()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {"f32": f32_launches(), "bf16": gemv.LAUNCHES_BF16, "f64": gemv.LAUNCHES_F64}
+    launches = {"f32": f32_launches(), "bf16": gemv.LAUNCHES_BF16, "f64": gemv.LAUNCHES_F64,
+                "f32_f64": gemv.LAUNCHES_F32_F64}
     for kind in kinds:
         require(launches[kind] > 0, f"(q) {name}: no {kind} GEMV launch")
     require(not any(symv.LAUNCHES.values()), f"(q) {name} launched a symv kernel")
@@ -1451,6 +1504,8 @@ def main():
     # Generators of their own, so the modes' ensembles stay those of ``gen``.
     measured["f64"] = check_kernel_f64(torch.Generator(device=dev).manual_seed(SEED + 3), dev)
     torch.cuda.empty_cache()
+    measured["f32_f64"] = check_kernel_f32_f64(
+        torch.Generator(device=dev).manual_seed(SEED + 8), dev)
     measured["pairs"] = gemv_pairs(torch.Generator(device=dev).manual_seed(SEED + 1), dev)
     measured_symv = check_symv(gen, dev, floor_ms)
     torch.cuda.empty_cache()
@@ -1546,6 +1601,7 @@ def main():
     require(not any(symv.LAUNCHES.values()), "the mixed mode launched a symv kernel")
     gemv_launches += gemv.LAUNCHES
     gemv_launches_bf16 = gemv.LAUNCHES_BF16
+    gemv_launches_f32_f64 = gemv.LAUNCHES_F32_F64    # the MPRGP-BB fixup's sweeps
     print(f"mixed: GEMV launches {mixed_counts[0]} ({mixed_counts[1]} bf16, "
           f"{mixed_counts[0] - mixed_counts[1]} f32) over the warm-up and timed calls")
     torch.cuda.synchronize()
@@ -1695,7 +1751,11 @@ def main():
              As, bs, None, gen, dense_sweep_bytes(B_CONE, N_CONE, 1), 27,
              lambda: gemv.LAUNCHES, tol=TOL_CONE, proj64=proj64_cone)
     require(not any(symv.LAUNCHES.values()), "cone run (b) launched a symv kernel")
+    require(gemv.LAUNCHES_F32_F64 > 0, "cone run (b) launched no (f32, f64) GEMV")
+    print(f"cone mprgp_bb: GEMV launches {gemv.LAUNCHES}, {gemv.LAUNCHES_F32_F64} of them "
+          f"(f32, f64), {f32_launches()} f32")
     cone_launches += gemv.LAUNCHES
+    gemv_launches_f32_f64 += gemv.LAUNCHES_F32_F64
 
     # (g) SPG from x = 0 with per-lane keys, uncompacted, then compacted.
     keys = split_keys(SEED_SPG, B_CONE, dev)
@@ -2055,8 +2115,8 @@ def main():
     launches_q = {}
     for name, fn, kinds in (("bench", q_bench, ("f32",)),
                             ("warm start", q_warmstart, ("f32",)),
-                            ("segment", q_segment, ("f32",)),
-                            ("large cone", q_large_cone, ("f32",)),
+                            ("segment", q_segment, ("f32", "f32_f64")),
+                            ("large cone", q_large_cone, ("f32", "f32_f64")),
                             ("ensemble", q_ensemble, ("f32",)),
                             ("ill-conditioned", q_illcond, ("f32", "bf16")),
                             ("f64 probe", q_f64_probe, ("f32", "f64"))):
@@ -2077,7 +2137,8 @@ def main():
          "source": "ccqppy_tpu_torch/csrc/batched_gemv.cu",
          "replaces": "ccqppy_tpu/ops/pallas_kernels.py:65",
          "launches": gemv_launches, "launches_bf16": gemv_launches_bf16,
-         "launches_f64": gemv_launches_f64, **measured,
+         "launches_f64": gemv_launches_f64, "launches_f32_f64": gemv_launches_f32_f64,
+         **measured,
          "n999": gemv_999, "shapes_q": shapes_q, "launches_q": launches_q},
         *({"name": name, "route": "cuda", "source": symv_src,
            "replaces": f"ccqppy_tpu/ops/pallas_kernels.py:{line}",

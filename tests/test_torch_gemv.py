@@ -127,7 +127,8 @@ def test_plain_version_on_offset_views_is_bitwise(offset, dtype):
 @pytest.mark.parametrize("A,x,error", [
     (torch.zeros((2, 8, 8), dtype=torch.float64), torch.zeros((2, 8)), TypeError),
     (torch.zeros((2, 8, 8), dtype=torch.float16), torch.zeros((2, 8)), TypeError),
-    (torch.zeros((2, 8, 8)), torch.zeros((2, 8), dtype=torch.float64), TypeError),
+    (torch.zeros((2, 8, 8), dtype=torch.bfloat16), torch.zeros((2, 8), dtype=torch.float64),
+     TypeError),
     (torch.zeros((2, 8, 8)), torch.zeros((2, 8), dtype=torch.bfloat16), TypeError),
     (torch.zeros((2, 8, 8)).mT, torch.zeros((2, 8)), ValueError),
     (torch.zeros((2, 8, 8)), torch.zeros((2, 16))[:, ::2], ValueError),
@@ -149,14 +150,15 @@ def test_kernel_operand_checks_pass(offset, dtype):
 
 @pytest.mark.parametrize("offset", [0, 1])
 def test_kernel_operand_checks_pass_f64(offset):
-    """Contiguous f64 A and f64 x (the f64 instance) pass at any storage
-    offset; the two f64-x pairs without an instance name the gap."""
+    """Contiguous f64 x with f64 A (the f64 instance) or f32 A (the (f32,
+    f64) instance) passes at any storage offset; bf16 A with f64 x, the
+    f64-x pair without an instance, names the gap."""
     A = _offset_view(torch.zeros((2, 8, 8), dtype=torch.float64), offset)
     x = _offset_view(torch.zeros((2, 8), dtype=torch.float64), offset)
     gemv._check_kernel_operands(A, x)
-    for low in (torch.float32, torch.bfloat16):
-        with pytest.raises(TypeError, match="no instance"):
-            gemv._check_kernel_operands(A.to(low), x)
+    gemv._check_kernel_operands(_offset_view(torch.zeros((2, 8, 8)), offset), x)
+    with pytest.raises(TypeError, match="no instance"):
+        gemv._check_kernel_operands(A.to(torch.bfloat16), x)
 
 
 KERNEL_TOL = 1e-5   # max|y - y_ref| / max|y_ref| against the f64 plain version
@@ -244,17 +246,45 @@ def test_kernel_nan_stays_in_its_row_on_cuda(cuda, offset, dtype):
 
 @pytest.mark.cuda
 def test_kernel_rejects_f64_and_strided_on_cuda(cuda):
-    """f64 A and x are the f64 instance's pair; f64 with f32 or bf16 on the
-    other side has no instance and raises, as a strided operand does."""
+    """f64 A and x are the f64 instance's pair, f32 A and f64 x the (f32,
+    f64) instance's; f64 A with f32 x and bf16 A with f64 x have no
+    instance and raise, as a strided operand does."""
     A = torch.zeros((2, 8, 8), dtype=torch.float64, device=cuda)
     x = torch.zeros((2, 8), dtype=torch.float64, device=cuda)
-    for a, v in ((A, x.float()), (A.float(), x), (A.to(torch.bfloat16), x)):
+    for a, v in ((A, x.float()), (A.to(torch.bfloat16), x)):
         with pytest.raises(TypeError):
             gemv.batched_gemv(a, v)
     with pytest.raises(ValueError):
         gemv.batched_gemv(A.float().mT, x.float())
     with pytest.raises(ValueError):
         gemv.batched_gemv(A.mT, x)
+
+
+F32_F64_SHAPES = [(1, 1), (1, 3), (3, 33), (3, 999), (2, 1025), (41, 1000), (1, 9999)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", F32_F64_SHAPES, ids=[f"B{B}-n{n}" for B, n in F32_F64_SHAPES])
+def test_f32_f64_instance_on_cuda(cuda, B, n):
+    """The (f32 A, f64 x) instance, MPRGP's f64 sweep: each f32 element
+    times an f64 x in one fused multiply-add, summed in f64, so against the
+    plain f64 version it errs by f64 rounding alone (1e-12 of the largest
+    |y|); bitwise the same from launch to launch and at storage offsets
+    with NaN around A and x; counted in ``LAUNCHES_F32_F64`` and not in
+    ``LAUNCHES_F64``."""
+    A, x = _random(cuda, B, n, torch.float32, 7 * n + B)
+    x = x.double() * (1 + 2.0**-30)        # bits below f32's
+    before = (gemv.LAUNCHES, gemv.LAUNCHES_F32_F64, gemv.LAUNCHES_F64)
+    y = gemv.batched_gemv(A, x)
+    torch.cuda.synchronize()
+    assert (gemv.LAUNCHES, gemv.LAUNCHES_F32_F64, gemv.LAUNCHES_F64) == \
+        (before[0] + 1, before[1] + 1, before[2])
+    assert y.dtype == torch.float64 and y.shape == x.shape
+    ref = gemv.batched_gemv_reference(A, x)
+    assert float((y - ref).abs().max() / ref.abs().max()) < 1e-12
+    for a_off, x_off in ((0, 1), (1, 0), (3, 1)):
+        y_off = gemv.batched_gemv(_offset_view(A, a_off), _offset_view(x, x_off))
+        assert torch.equal(y_off.view(torch.int64), y.view(torch.int64)), (a_off, x_off)
 
 
 def test_dense_operator_matches_jax_per_lane():
