@@ -48,6 +48,18 @@ around a point that the rounding, not the QP, fixes.  So below f64:
 
 In f64 the sweeps and the claims are the JAX package's.
 
+**On the card** the fused loop on a dense stack replays a CUDA graph of a
+pass after its first (``_replay``).  Where the set is a Lorentz cone over
+blocks (one ``mu`` or one a block, in b's dtype; ``ops.sc_step.set_args``'s
+"lorentz" kind), b is a contiguous f32 or f64 tensor, the operator's
+reductions are ``LinearOperator``'s, the expansion is "bb" and no trace is
+kept (``trace_len == 0``), a pass is the sweep and one launch of the fused
+step kernel (``ops.mprgp_step``, ``csrc/mprgp_step.cu``), which computes
+the eager body and the select of the running lanes in place and writes the
+next sweep's operand; one more launch a loop puts the first operand in
+place.  Every other case, the CPU included, runs the eager body, which is
+the kernel's plain version (``_step_args`` decides, from the input alone).
+
 Telemetry: ``MPRGP_ITERS`` counts the loop's iterations on the host (a
 pass of the body, every form), ``MPRGP_AUDITS`` the audit sweeps, and the
 span ``ccqppy.mprgp.iter`` marks an iteration's host work under a
@@ -57,6 +69,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -66,8 +79,8 @@ from ccqppy_tpu_torch.models.base import (SolverConfig, any_lane, default_x0,
                                           make_result, pg_residual,
                                           record_trace, select_lanes, span,
                                           where_lanes)
-from ccqppy_tpu_torch.ops import gemv
-from ccqppy_tpu_torch.ops.linop import DenseOperator, as_operator
+from ccqppy_tpu_torch.ops import gemv, mprgp_step, sc_step
+from ccqppy_tpu_torch.ops.linop import DenseOperator, LinearOperator, as_operator
 from ccqppy_tpu_torch.ops.projections import identity
 
 #: Passes of either form's loop body in this process, counted on the host.
@@ -146,12 +159,19 @@ def _audit(op, proj64, b, x, gd):
 
 
 def _iterate(step, active, s):
-    """One pass of a loop body on the lanes ``active``, counted and marked
-    for the profiler."""
+    """One pass ``step(s, active)`` on the lanes ``active``, counted and
+    marked for the profiler."""
     global MPRGP_ITERS
     with span("ccqppy.mprgp.iter"):
         MPRGP_ITERS += 1
-        return select_lanes(active, step(s), s)
+        return step(s, active)
+
+
+def _selected(body):
+    """A pass of the eager ``body`` on the lanes ``active`` (those not done
+    when None): the rest keep their state."""
+    return lambda s, active=None: select_lanes(~s.done if active is None else active,
+                                               body(s), s)
 
 
 def _graphed(op, b):
@@ -169,39 +189,42 @@ def _graphed(op, b):
 _GRAPH_POOLS = {}
 
 
-def _fused_loop(body, s, graphed):
-    """Pass ``body`` over the lanes not done until every lane is done.  With
-    ``graphed`` the first pass runs eagerly (it warms every kernel) and the
-    rest replay one CUDA graph of a pass (``_replay``)."""
+def _fused_loop(step, s, graphed):
+    """Pass ``step(s, active)`` over the lanes not done until every lane is
+    done.  With ``graphed`` the first pass runs eagerly (it warms every
+    kernel) and the rest replay one CUDA graph of a pass (``_replay``)."""
     while True:
         active = ~s.done
         if not any_lane(active):
             return s
-        s = _iterate(body, active, s)
+        s = _iterate(step, active, s)
         if graphed:
-            return _replay(body, s)
+            return _replay(step, s)
 
 
-def _replay(body, s):
+def _replay(step, s):
     """The rest of the loop from state ``s`` as replays of one CUDA graph of a
-    pass, captured on a copy of the state that each replay updates in place:
-    the same kernels on the same values as the eager passes, launched by the
-    device, so a pass costs the host one launch and its flag's read (in
-    place of ~600 launches, the loop's cost at B = 1).  The GEMV counters
-    count each replay's launches (``gemv.graph_capture``)."""
+    pass, captured on the state (``_private``), which each replay updates in
+    place: the same kernels on the same values as the eager passes,
+    launched by the device, so a pass costs the host one launch and its
+    flag's read (in place of ~600 launches for the eager body at B = 1, or
+    of two for the fused step).  The GEMV's and the step kernel's counters
+    count each replay's launches (``graph_capture``)."""
     global MPRGP_ITERS
-    static = type(s)(*(t.clone() for t in s))
+    static = _private(s)
     graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     pool, _ = _GRAPH_POOLS.get(s.x.device, (None, None))
     pool = torch.cuda.graph_pool_handle() if pool is None else pool
-    with torch.cuda.stream(stream), gemv.graph_capture() as replayed:
+    with torch.cuda.stream(stream), gemv.graph_capture() as replayed, \
+            mprgp_step.graph_capture() as stepped:
         # Only this thread's calls are checked: a profiler's threads may
         # touch the card while a traced call captures.
         graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-        new = select_lanes(~static.done, body(static), static)
+        new = step(static)
         for dst, src in zip(static, new):
-            dst.copy_(src)
+            if dst is not src:
+                dst.copy_(src)
         graph.capture_end()
     torch.cuda.current_stream().wait_stream(stream)
     _GRAPH_POOLS[s.x.device] = (pool, graph)
@@ -210,7 +233,59 @@ def _replay(body, s):
             MPRGP_ITERS += 1
             graph.replay()
             replayed()
+            stepped()
     return static
+
+
+def _private(s):
+    """The state with every field a contiguous tensor of its own: a field
+    that shares its storage with an earlier one (the first state's x and
+    x_prev), or that is not contiguous, is copied."""
+    seen, fields = set(), []
+    for t in s:
+        if t.data_ptr() in seen or not t.is_contiguous():
+            t = t.clone(memory_format=torch.contiguous_format)
+        seen.add(t.data_ptr())
+        fields.append(t)
+    return type(s)(*fields)
+
+
+def _step_args(op, b, proj, config, fixed_exp):
+    """``ops.sc_step.set_args`` of ``proj`` when the fused loop runs the step
+    kernel (see the module docstring), else None: the eager body."""
+    if not (_graphed(op, b) and b.is_contiguous() and b.dtype in (torch.float32, torch.float64)):
+        return None
+    if any(getattr(type(op), f) is not getattr(LinearOperator, f)
+           for f in ("dot", "reduce_min", "global_size")):
+        return None
+    if config.trace_len or fixed_exp:
+        return None
+    sargs = sc_step.set_args(proj, b)
+    return sargs if sargs is not None and sargs.kind == "lorentz" else None
+
+
+def _stepped_loop(op, b, s, sargs, config):
+    """The fused loop with the step kernel, on the state (``_private``),
+    updated in place.  One launch puts the first operand in place; a pass is
+    then the sweep of the operand ``v`` (f64) and the step, replayed as a
+    CUDA graph after the first.  The pass leaves in ``psi`` and ``prop`` the
+    free part of the new ``(x, g)`` and its proportioning test, which the
+    next pass reads.  At a loop's start the direction of every running lane
+    is the free part of (x, g) (the first state's, a resumed lane's): the
+    first launch writes it into p, and psi is its copy."""
+    gamma2, tiny = config.gamma**2, eps_of(b)
+    s = _private(s)
+    v = torch.empty(s.x.shape, dtype=torch.float64, device=s.x.device)
+    prop = torch.empty_like(s.done)
+    mprgp_step.operand(sargs, b, s, s.p, v, prop, gamma2=gamma2)
+    psi = s.p.clone()
+
+    def step(s, active=None):
+        mprgp_step.step(sargs, op.matvec_f64(v), b, s, psi, v, prop, tol=config.tol,
+                        budget=config.max_matvecs, gamma2=gamma2, tiny=tiny)
+        return s
+
+    return _fused_loop(step, s, graphed=True)
 
 
 class _State(NamedTuple):
@@ -317,6 +392,7 @@ def _solve(A, b, x0, proj, config, bb_variant):
                       record_trace(s.trace, s.it, res))
 
     proj64 = _f64_set(proj) if _audited(b) else None
+    step = _selected(body)
     while True:
         outer = ~o.done
         if not any_lane(outer):
@@ -326,7 +402,7 @@ def _solve(A, b, x0, proj, config, bb_variant):
             active = outer & ~s.done
             if not any_lane(active):
                 break
-            s = _iterate(body, active, s)
+            s = _iterate(step, active, s)
         # Verification sweep for every outer-active lane, with the exact
         # matvec (the JAX package uses op.matvec here; the two are the same
         # for every operator ported so far); below f64, the f64 audit.
@@ -365,6 +441,84 @@ class _FusedState(NamedTuple):
     trace: torch.Tensor
 
 
+def _fused_body(s, op, b, proj, config, fixed_exp=False, alpha_bar=None):
+    """One eager pass of the single-sweep loop on every lane (the caller
+    keeps the done lanes' state): the plain version of ``ops.mprgp_step``.
+    ``fixed_exp`` takes the "fixed" expansion with step ``alpha_bar``
+    (B, 1)."""
+    tiny, gamma2, tol, budget = eps_of(b), config.gamma**2, config.tol, config.max_matvecs
+    # ---- operand selection -------------------------------------------
+    # For a pending lane (x, g) is the inconsistent (x1, gh) pair; what
+    # is computed from it here is dropped by the selects.
+    psi, beta_ch = proj.free_chopped(s.x, s.g)
+    proportional = op.dot(beta_ch, beta_ch) < gamma2 * op.dot(psi, psi)
+    x_prop = proj.project(s.x - lanes(s.alpha_bb) * s.g)
+    dx_prop = x_prop - s.x
+    br_fin = s.pending | s.verifying
+    br_cg_ex = ~br_fin & proportional
+    v = where_lanes(br_fin, s.x, where_lanes(br_cg_ex, s.p, x_prop))
+    Av, Avb = _sweep(op, v, b)                          # the one sweep
+    mv = s.mv + 1
+
+    # ---- expansion finish / claim verify: fresh g at x (Av == A x) ----
+    g_fin = Avb
+    a_fin = _bb_step(op, s.x - s.x_prev, g_fin - s.g_prev, tiny)
+    # ---- proportioning: fresh gradient at x_prop (Av == A x_prop) -----
+    g_pp = Avb
+    a_pp = _bb_step(op, dx_prop, g_pp - s.g, tiny)
+    # ---- CG / expansion (Av == A p) -----------------------------------
+    pAp = op.dot(s.p, Av) + tiny
+    alpha_cg = op.dot(psi, s.p) / pAp
+    alpha_f = op.reduce_min(proj.max_feasible_step(s.x, s.p))
+    take_cg = alpha_cg <= alpha_f
+    x_cg = s.x - lanes(alpha_cg) * s.p
+    g_cg = s.g - lanes(alpha_cg) * Av
+    a_cgbb = op.dot(s.p, s.p) / pAp
+    xh = s.x - lanes(alpha_f) * s.p
+    gh = s.g - lanes(alpha_f) * Av
+    if fixed_exp:
+        psih, _ = proj.free_chopped(xh, gh)
+        x_ex = proj.project(xh - alpha_bar * psih)
+    else:
+        x_ex = proj.project(xh - lanes(a_cgbb) * gh)
+
+    # ---- merge -------------------------------------------------------
+    br_cg = br_cg_ex & take_cg
+    br_ex = br_cg_ex & ~take_cg
+
+    def sel(fin, cg, ex, pp):
+        return where_lanes(br_fin, fin, where_lanes(br_cg, cg, where_lanes(br_ex, ex, pp)))
+
+    x1 = sel(s.x, x_cg, x_ex, x_prop)
+    g1 = sel(g_fin, g_cg, gh, g_pp)
+    # A verification moves nothing, so its secant pair is stale: keep
+    # the carried BB step.
+    a1 = where_lanes(s.verifying, s.alpha_bb, sel(a_fin, a_cgbb, s.alpha_bb, a_pp))
+    x_prev1 = where_lanes(br_ex, s.x, s.x_prev)
+    g_prev1 = where_lanes(br_ex, s.g, s.g_prev)
+
+    psi1, _ = proj.free_chopped(x1, g1)
+    bcg = op.dot(psi1, Av) / pAp
+    p1 = where_lanes(br_cg, psi1 - lanes(bcg) * s.p, psi1)
+    p1 = where_lanes(br_ex, torch.zeros_like(p1), p1)
+
+    res1 = pg_residual(proj, x1, g1, config.gd, op)
+    # An expansion's gradient is not exact yet: keep the last honest
+    # residual; the finish iteration reports the refreshed one.
+    res = where_lanes(br_ex, s.res, res1)
+    # The CG residual is carried by recurrence and may only claim; the
+    # claim is verified by a refresh next iteration.
+    fresh_now = br_fin | (~br_fin & ~proportional)
+    done = ((res < tol) & fresh_now & ~br_ex) | (mv >= budget)
+    verifying1 = br_cg & (res1 < tol) & ~done
+    pending1 = br_ex & ~done
+    # A budget exit on an expansion returns the pre-expansion iterate,
+    # whose residual is the one reported.
+    x1 = where_lanes(br_ex & done, s.x, x1)
+    return _FusedState(x1, g1, p1, x_prev1, g_prev1, a1, pending1, verifying1,
+                       res, mv, s.it + 1, done, record_trace(s.trace, s.it, res))
+
+
 def _solve_fused(A, b, x0, proj, config, bb_variant):
     """Single-sweep MPRGP: one operator application per iteration, the
     branch chosen per lane by select.  Same iterates and matvec totals as
@@ -373,109 +527,46 @@ def _solve_fused(A, b, x0, proj, config, bb_variant):
     initial iterate) and an expansion's residual lands one iteration later.
     Below f64 every claim is audited once the loop ends (``_audit_fused``)."""
     op, proj, x_init = _prepare(A, b, x0, proj)
-    tiny = eps_of(b)
-    gamma2 = config.gamma**2
-    budget, tol = config.max_matvecs, config.tol
-    B = b.shape[0]
     fixed_exp = bb_variant and config.expansion == "fixed"
     alpha_bar = lanes(2.0 / op.inf_norm()) if fixed_exp else None
-
-    _, g_init = _sweep(op, x_init, b)
-    res0 = pg_residual(proj, x_init, g_init, config.gd, op)
-    alpha_bb0 = op.dot(g_init, g_init) / (op.dot(g_init, _matvec(op, g_init, b)) + tiny)
-    psi0, _ = proj.free_chopped(x_init, g_init)
-    false = torch.zeros(B, dtype=torch.bool, device=b.device)
-    s = _FusedState(x=x_init, g=g_init, p=psi0, x_prev=x_init, g_prev=g_init,
-                    alpha_bb=alpha_bb0, pending=false, verifying=false, res=res0,
-                    mv=torch.full((B,), 2, dtype=torch.int32, device=b.device),
-                    it=torch.zeros(B, dtype=torch.int32, device=b.device),
-                    done=(res0 < tol) | (2 >= budget),
-                    trace=init_trace(config, B, b.dtype, b.device))
-
-    def body(s):
-        # ---- operand selection -------------------------------------------
-        # For a pending lane (x, g) is the inconsistent (x1, gh) pair; what
-        # is computed from it here is dropped by the selects.
-        psi, beta_ch = proj.free_chopped(s.x, s.g)
-        proportional = op.dot(beta_ch, beta_ch) < gamma2 * op.dot(psi, psi)
-        x_prop = proj.project(s.x - lanes(s.alpha_bb) * s.g)
-        dx_prop = x_prop - s.x
-        br_fin = s.pending | s.verifying
-        br_cg_ex = ~br_fin & proportional
-        v = where_lanes(br_fin, s.x, where_lanes(br_cg_ex, s.p, x_prop))
-        Av, Avb = _sweep(op, v, b)                          # the one sweep
-        mv = s.mv + 1
-
-        # ---- expansion finish / claim verify: fresh g at x (Av == A x) ----
-        g_fin = Avb
-        a_fin = _bb_step(op, s.x - s.x_prev, g_fin - s.g_prev, tiny)
-        # ---- proportioning: fresh gradient at x_prop (Av == A x_prop) -----
-        g_pp = Avb
-        a_pp = _bb_step(op, dx_prop, g_pp - s.g, tiny)
-        # ---- CG / expansion (Av == A p) -----------------------------------
-        pAp = op.dot(s.p, Av) + tiny
-        alpha_cg = op.dot(psi, s.p) / pAp
-        alpha_f = op.reduce_min(proj.max_feasible_step(s.x, s.p))
-        take_cg = alpha_cg <= alpha_f
-        x_cg = s.x - lanes(alpha_cg) * s.p
-        g_cg = s.g - lanes(alpha_cg) * Av
-        a_cgbb = op.dot(s.p, s.p) / pAp
-        xh = s.x - lanes(alpha_f) * s.p
-        gh = s.g - lanes(alpha_f) * Av
-        if fixed_exp:
-            psih, _ = proj.free_chopped(xh, gh)
-            x_ex = proj.project(xh - alpha_bar * psih)
-        else:
-            x_ex = proj.project(xh - lanes(a_cgbb) * gh)
-
-        # ---- merge -------------------------------------------------------
-        br_cg = br_cg_ex & take_cg
-        br_ex = br_cg_ex & ~take_cg
-
-        def sel(fin, cg, ex, pp):
-            return where_lanes(br_fin, fin, where_lanes(br_cg, cg, where_lanes(br_ex, ex, pp)))
-
-        x1 = sel(s.x, x_cg, x_ex, x_prop)
-        g1 = sel(g_fin, g_cg, gh, g_pp)
-        # A verification moves nothing, so its secant pair is stale: keep
-        # the carried BB step.
-        a1 = where_lanes(s.verifying, s.alpha_bb, sel(a_fin, a_cgbb, s.alpha_bb, a_pp))
-        x_prev1 = where_lanes(br_ex, s.x, s.x_prev)
-        g_prev1 = where_lanes(br_ex, s.g, s.g_prev)
-
-        psi1, _ = proj.free_chopped(x1, g1)
-        bcg = op.dot(psi1, Av) / pAp
-        p1 = where_lanes(br_cg, psi1 - lanes(bcg) * s.p, psi1)
-        p1 = where_lanes(br_ex, torch.zeros_like(p1), p1)
-
-        res1 = pg_residual(proj, x1, g1, config.gd, op)
-        # An expansion's gradient is not exact yet: keep the last honest
-        # residual; the finish iteration reports the refreshed one.
-        res = where_lanes(br_ex, s.res, res1)
-        # The CG residual is carried by recurrence and may only claim; the
-        # claim is verified by a refresh next iteration.
-        fresh_now = br_fin | (~br_fin & ~proportional)
-        done = ((res < tol) & fresh_now & ~br_ex) | (mv >= budget)
-        verifying1 = br_cg & (res1 < tol) & ~done
-        pending1 = br_ex & ~done
-        # A budget exit on an expansion returns the pre-expansion iterate,
-        # whose residual is the one reported.
-        x1 = where_lanes(br_ex & done, s.x, x1)
-        return _FusedState(x1, g1, p1, x_prev1, g_prev1, a1, pending1, verifying1,
-                           res, mv, s.it + 1, done, record_trace(s.trace, s.it, res))
-
-    proj64, passed = (_f64_set(proj) if _audited(b) else None), false
+    sargs = _step_args(op, b, proj, config, fixed_exp)
+    s = _fused_start(op, b, x_init, proj, config, free=sargs is None)
+    step = _selected(functools.partial(_fused_body, op=op, b=b, proj=proj, config=config,
+                                       fixed_exp=fixed_exp, alpha_bar=alpha_bar))
+    proj64, passed = (_f64_set(proj) if _audited(b) else None), torch.zeros_like(s.done)
     graphed = _graphed(op, b)
     while True:
-        s = _fused_loop(body, s, graphed)
+        if sargs is not None:
+            s = _stepped_loop(op, b, s, sargs, config)
+        else:
+            s = _fused_loop(step, s, graphed)
         if proj64 is None:
             break
         s, resumed, passed = _audit_fused(op, proj, proj64, b, s, config, passed)
-        if not any_lane(resumed):
+        if resumed is None:
             break
     # Every converged exit carries a fresh-gradient residual (the audited one
     # below f64); budget exits are unconverged by the mv < max semantics.
-    return make_result(s.x, s.res, s.mv, s.it, budget, s.trace)
+    return make_result(s.x, s.res, s.mv, s.it, config.max_matvecs, s.trace)
+
+
+def _fused_start(op, b, x_init, proj, config, free=True):
+    """The single-sweep loop's first state from the feasible ``x_init``: two
+    sweeps, the gradient and the BB seed ``g.g / g.Ag``.  The direction p is
+    the free part of (x, g); without ``free`` it is left unset, for the step
+    kernel's first launch to write (``_stepped_loop``)."""
+    B, tiny = b.shape[0], eps_of(b)
+    _, g_init = _sweep(op, x_init, b)
+    res0 = pg_residual(proj, x_init, g_init, config.gd, op)
+    alpha_bb0 = op.dot(g_init, g_init) / (op.dot(g_init, _matvec(op, g_init, b)) + tiny)
+    psi0 = proj.free_chopped(x_init, g_init)[0] if free else torch.empty_like(g_init)
+    false = torch.zeros(B, dtype=torch.bool, device=b.device)
+    return _FusedState(x=x_init, g=g_init, p=psi0, x_prev=x_init, g_prev=g_init,
+                       alpha_bb=alpha_bb0, pending=false, verifying=false, res=res0,
+                       mv=torch.full((B,), 2, dtype=torch.int32, device=b.device),
+                       it=torch.zeros(B, dtype=torch.int32, device=b.device),
+                       done=(res0 < config.tol) | (2 >= config.max_matvecs),
+                       trace=init_trace(config, B, b.dtype, b.device))
 
 
 def _audit_fused(op, proj, proj64, b, s, config, passed):
@@ -484,20 +575,24 @@ def _audit_fused(op, proj, proj64, b, s, config, passed):
     ``passed`` an audit already) is charged the sweep and takes the audited
     residual; one whose audit is not under tol and that has matvecs left is
     resumed from x with the audited gradient in b's dtype and its free part
-    as the direction.  Returns the state, the resumed lanes and the lanes
-    that have passed an audit."""
+    as the direction.  Returns the state, the resumed lanes (None where no
+    lane resumed: the state's g and p are then left as they are, since no
+    lane runs on them) and the lanes that have passed an audit.  Whether
+    any lane resumed is the audit's one read on the host."""
     budget = config.max_matvecs
     claimed = s.done & ~passed & (s.res < config.tol) & (s.mv < budget)
     g64, res64 = _audit(op, proj64, b, s.x, config.gd)
     under = res64 < config.tol
     mv = s.mv + claimed.to(s.mv.dtype)
     resumed = claimed & ~under & (mv < budget)
+    s = s._replace(res=where_lanes(claimed, res64.to(s.res.dtype), s.res), mv=mv)
+    passed = passed | (claimed & under)
+    if not any_lane(resumed):
+        return s, None, passed
     g = g64.to(b.dtype)
     psi, _ = proj.free_chopped(s.x, g)
     return (s._replace(g=where_lanes(resumed, g, s.g), p=where_lanes(resumed, psi, s.p),
-                       res=where_lanes(claimed, res64.to(s.res.dtype), s.res), mv=mv,
-                       done=s.done & ~resumed),
-            resumed, passed | (claimed & under))
+                       done=s.done & ~resumed), resumed, passed)
 
 
 def solve(A, b, x0=None, proj=None, config: MPRGPConfig = MPRGPConfig()):

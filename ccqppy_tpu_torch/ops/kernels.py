@@ -31,6 +31,12 @@ _P, _I64, _F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 # budget, restart, stream).
 _STEP = (_P,) * 12
 _STEP_TAIL = (_I64, _I64, _F64, _I64, _I64, _P)
+# mprgp_step_lorentz_*: the state's seventeen pointers (A v, b, x, g, p,
+# x_prev, g_prev, psi, v, alpha_bb, res, mv, it, done, pending, verifying,
+# prop), mu and its stride, d, then (batch, n, tol, budget, gamma^2, tiny,
+# mode, threads, cluster, stream).
+_MPRGP = ((_P,) * 17 + (_P, _I64, _I64, _I64, _I64, _F64, _I64, _F64, _F64, _I64, _I64, _I64,
+                        _P))
 SIGNATURES = {
     "batched_gemv_f32": (_P, _P, _P, _I64, _I64, _P),
     "batched_gemv_bf16": (_P, _P, _P, _I64, _I64, _P),
@@ -42,6 +48,8 @@ SIGNATURES = {
     "apgd_sc_step_lorentz_f64": (*_STEP, _P, _I64, _I64, *_STEP_TAIL),
     "apgd_sc_step_box_f32": (*_STEP, _P, _I64, _P, _I64, _F64, *_STEP_TAIL),
     "apgd_sc_step_box_f64": (*_STEP, _P, _I64, _P, _I64, _F64, *_STEP_TAIL),
+    "mprgp_step_lorentz_f32": _MPRGP,
+    "mprgp_step_lorentz_f64": _MPRGP,
 }
 
 

@@ -191,15 +191,15 @@ from ccqppy_tpu_torch import bench, compat
 from ccqppy_tpu_torch.benchmarks import (benchmark_ensemble_16k, benchmark_f64_probe,
                                          benchmark_illcond, benchmark_large_cone,
                                          benchmark_mixed_segment, benchmark_warmstart_sequence)
-from ccqppy_tpu_torch.models import apgd, pcg, spg
+from ccqppy_tpu_torch.models import apgd, mprgp, pcg, spg
 from ccqppy_tpu_torch.models.apgd import APGDConfig, APGDSCConfig
-from ccqppy_tpu_torch.models.base import pg_residual, select_lanes
+from ccqppy_tpu_torch.models.base import eps_of, pg_residual, select_lanes
 from ccqppy_tpu_torch.models.bbpgd import BBPGDfConfig
 from ccqppy_tpu_torch.models.direct import solve_direct_batched, spd_inverse_batch
 from ccqppy_tpu_torch.models.mprgp import MPRGPBBConfig
 from ccqppy_tpu_torch.models.pcg import PCGConfig
 from ccqppy_tpu_torch.models.spg import SPGConfig
-from ccqppy_tpu_torch.ops import collectives, gemv, kernels, sc_step, symv
+from ccqppy_tpu_torch.ops import collectives, gemv, kernels, mprgp_step, sc_step, symv
 from ccqppy_tpu_torch.ops.linop import (BlockSparseOperator, CastDense, DenseOperator,
                                         LinearOperator, MixedPrecDense, ShardedDenseOperator,
                                         SpectralDense, SymmetricPackedDense,
@@ -340,6 +340,8 @@ PAIR_SHAPES = ((B_ITER, N, torch.float32), (B_CONE, N_CONE, torch.float32),
                (120, N, torch.float32), (41, N_CONE, torch.float32),
                (B_ITER, N, torch.bfloat16), (B_F64, N, torch.float64),
                (1024, N, torch.float64))
+N_LARGE = 9999         # the mprgp step's check and timing at B = 1 (BASELINE #3's width)
+MPRGP_CHECK_PASSES = (8, 16)   # passes the mprgp step is checked over at n = 999, 9999
 SYMV_TOL = 1e-5        # max rel err against the f64 plain version (the JAX bound)
 # (B, n, tile) of the symv checks; the last is the packed mode's shape, and
 # its lane 0 the single-problem shape of mode (l).
@@ -356,6 +358,7 @@ def zero_counts():
     """Set every kernel's launch count to 0, just before a mode runs."""
     gemv.LAUNCHES = gemv.LAUNCHES_BF16 = gemv.LAUNCHES_F64 = gemv.LAUNCHES_F32_F64 = 0
     sc_step.LAUNCHES = apgd.SC_STEPS_FUSED = apgd.SC_STEPS_EAGER = 0
+    mprgp_step.LAUNCHES = mprgp.MPRGP_ITERS = 0
     symv.LAUNCHES.update(dict.fromkeys(symv.LAUNCHES, 0))
     COLLECTIVES.update(dict.fromkeys(COLLECTIVES, 0))
 
@@ -525,6 +528,173 @@ def check_sc_step(As, bs, proj):
     out.update(ms=device_ms(step), plain_ms=device_ms(plain))
     out["bound_ms"], out["bound_by"] = bound(nbytes, 40 * bs.numel())
     return out
+
+
+class SweptOperator(LinearOperator):
+    """The operator of one eager MPRGP pass whose one sweep is a given f64
+    ``A v``; it keeps the operand the body swept."""
+
+    def __init__(self, av):
+        self.av, self.seen = av, None
+
+    def matvec(self, x):
+        self.seen = x
+        return self.av
+
+    def matvec_f64(self, x):
+        return self.matvec(x)
+
+
+def mprgp_operand(proj, s, gamma2):
+    """(psi, prop, v) of the eager body at state ``s``: the free part of
+    (x, g), the proportioning test and the operand (f64); a done lane's v is
+    its x."""
+    op = LinearOperator()
+    psi, beta = proj.free_chopped(s.x, s.g)
+    prop = op.dot(beta, beta) < gamma2 * op.dot(psi, psi)
+    x_prop = proj.project(s.x - s.alpha_bb[:, None] * s.g)
+    v = torch.where((s.pending | s.verifying)[:, None], s.x,
+                    torch.where(prop[:, None], s.p, x_prop))
+    return psi, prop, torch.where(s.done[:, None], s.x, v).double()
+
+
+def check_mprgp_step(As, bs, proj, cfg, passes):
+    """The fused MPRGP step on the card against the eager body with its
+    select (its plain version), pass by pass along the first ``passes``
+    passes of a solve from the cone-Jacobi start (fewer where every lane is
+    done first), then timed.
+
+    Check, each pass: the operand launch and one step from the eager
+    state, and one ``select_lanes(~done, _fused_body(...))`` on the same
+    sweep (the GEMV of the kernel's operand); the walk goes on from the
+    eager state.  Required: the operand the eager body swept and the
+    kernel's within 4 ulps; mv, it, done, pending and verifying equal;
+    every field of a done lane kept; x, g, p, x_prev, g_prev and the next
+    operand within 4 ulps of the largest entry of what each is formed from
+    (p and psi: g's too; v, which is x, p or a step from x: x's and g's),
+    the operand beyond what the two
+    alpha_bb's difference moves it; res within 1e-5 relative (f32), beyond
+    what 4 ulps of g's scale in each entry of the residual vector move it
+    (near a solution the residual is small against g).  The lanes'
+    branches are counted.
+
+    Timing, device-only, from the state the walk ends in (tol 0 and no
+    budget keep every lane running): a pass (the sweep and the step), the
+    sweep alone and the eager pass (the sweep, the eager body and its
+    select); the step's time is the pass's less the sweep's, the eager
+    body's the eager pass's less the sweep's."""
+    B, n = bs.shape
+    op = DenseOperator(As)
+    diag = As.diagonal(dim1=-2, dim2=-1)
+    s = mprgp._fused_start(op, bs, proj.project(-bs / diag), proj, cfg)
+    sargs = sc_step.set_args(proj, bs)
+    require(sargs is not None and sargs.kind == "lorentz",
+            f"sc_step.set_args refused {type(proj).__name__}")
+    gamma2, tiny = cfg.gamma**2, eps_of(bs)
+    eps = torch.finfo(bs.dtype).eps
+    branches = dict.fromkeys(("finish", "cg", "expansion", "proportioning", "done"), 0)
+    worst = dict.fromkeys(("swept", "x", "g", "p", "x_prev", "g_prev", "psi", "v"), 0.0)
+    res_err, checked = 0.0, 0
+
+    def ulps(name, got, want, *terms, spread=0.0):
+        """The largest difference in ulps of the largest entry of ``want`` and
+        of ``terms``, beyond ``spread`` (B,) per lane."""
+        scale = max(float(t.double().abs().max()) for t in (want, *terms))
+        diff = (got.double() - want.double()).abs().amax(-1) - spread
+        err = float(diff.max()) / (eps * scale)
+        worst[name] = max(worst[name], err)
+        require(err <= 4, f"mprgp step: {name} off the eager body by {err:.1f} ulps")
+
+    for _ in range(passes):
+        if not bool((~s.done).any()):
+            break
+        checked += 1
+        s = mprgp._FusedState(*(t.contiguous() for t in s))
+        f = mprgp._FusedState(*(t.clone() for t in s))
+        psi, v = torch.empty_like(f.x), torch.empty((B, n), dtype=torch.float64, device=bs.device)
+        prop = torch.empty_like(f.done)
+        mprgp_step.operand(sargs, bs, f, psi, v, prop, gamma2=gamma2)
+        av = op.matvec_f64(v)
+        swept = SweptOperator(av)
+        ref = select_lanes(~s.done, mprgp._fused_body(s, swept, bs, proj, cfg), s)
+        run = ~s.done
+        ulps("swept", v[run], swept.seen.double()[run], s.x[run])
+        psi0, prop0, _ = mprgp_operand(proj, s, gamma2)
+        flat = LinearOperator()
+        take = flat.dot(psi0, s.p) / (flat.dot(s.p, av.to(bs.dtype)) + tiny) <= \
+            proj.max_feasible_step(s.x, s.p)
+        fin = s.pending | s.verifying
+        for name, lanes_ in (("finish", run & fin), ("cg", run & ~fin & prop0 & take),
+                             ("expansion", run & ~fin & prop0 & ~take),
+                             ("proportioning", run & ~fin & ~prop0), ("done", s.done)):
+            branches[name] += int(lanes_.sum())
+        mprgp_step.step(sargs, av, bs, f, psi, v, prop, tol=cfg.tol, budget=cfg.max_matvecs,
+                        gamma2=gamma2, tiny=tiny)
+        for name in ("mv", "it", "done", "pending", "verifying"):
+            require(torch.equal(getattr(f, name), getattr(ref, name)),
+                    f"mprgp step: {name} differs from the eager body on "
+                    f"{int((getattr(f, name) != getattr(ref, name)).sum())} lanes")
+        for name, got, old in zip(mprgp._FusedState._fields, f, s):
+            require(torch.equal(got[s.done], old[s.done]), f"mprgp step: a done lane's {name} changed")
+        for name in ("x", "g", "p", "x_prev", "g_prev"):
+            terms = (s.g[run], ref.g[run]) if name == "p" else ()
+            ulps(name, getattr(f, name)[run], getattr(ref, name)[run],
+                 getattr(s, name)[run], *terms)
+        # res past 1e-5 relative by no more than 4 ulps of g's scale in
+        # each entry of the residual vector move it.
+        slack = 4 * eps * s.g.abs().amax(-1).maximum(ref.g.abs().amax(-1)) / (3 * n**0.5)
+        err = float(((f.res - ref.res).abs() - slack)[run].div(ref.res[run]).max())
+        res_err = max(res_err, err)
+        require(err <= 1e-5, f"mprgp step: res off the eager body by {err} relative")
+        live = ~ref.done
+        if bool(live.any()):
+            psi_r, prop_r, v_r = mprgp_operand(proj, ref, gamma2)
+            require(torch.equal(prop[live], prop_r[live]), "mprgp step: prop differs")
+            ulps("psi", psi[live], psi_r[live], ref.g[live], s.g[live])
+            # P(x - alpha_bb g) moves by no more than alpha_bb g does: the
+            # part of the difference that alpha_bb's (a quotient of two dots)
+            # accounts for is allowed.
+            spread = ((f.alpha_bb - ref.alpha_bb).abs() * ref.g.abs().amax(-1)).double()
+            ulps("v", v[live], v_r[live], ref.x[live], s.x[live], ref.g[live], s.g[live],
+                 spread=spread[live])
+        s = ref
+    out = {"B": B, "n": n, "check": {"passes": checked, "branches": branches,
+                                     "ulps": worst, "res_rel_err": res_err}}
+
+    s = mprgp._FusedState(*(t.clone() for t in s))._replace(
+        done=torch.zeros_like(s.done), mv=torch.zeros_like(s.mv))
+    run_cfg = MPRGPBBConfig(tol=0.0, max_matvecs=1 << 30)
+    psi, v = torch.empty_like(s.x), torch.empty((B, n), dtype=torch.float64, device=bs.device)
+    prop = torch.empty_like(s.done)
+    mprgp_step.operand(sargs, bs, s, psi, v, prop, gamma2=gamma2)
+
+    def step():
+        mprgp_step.step(sargs, op.matvec_f64(v), bs, s, psi, v, prop, tol=0.0,
+                        budget=run_cfg.max_matvecs, gamma2=gamma2, tiny=tiny)
+
+    eager = mprgp._selected(lambda t: mprgp._fused_body(t, op, bs, proj, run_cfg))
+    t0 = mprgp._FusedState(*(t.clone() for t in s))
+    pass_ms, sweep_ms = device_ms(step), device_ms(lambda: op.matvec_f64(v))
+    eager_ms = device_ms(lambda: eager(t0))
+    # Per lane and coordinate: A v (8 bytes), x, g, p, psi and one of b,
+    # x_prev, g_prev or v read; x, g, p, psi (4 each) and v (8) written.
+    # About 100 operations an element: three projections, the split's
+    # normal, the feasible step's roots.
+    nbytes = (8 + 4 * 5 + 4 * 4 + 8) * B * n + B * 40
+    out.update(ms=pass_ms - sweep_ms, pass_ms=pass_ms, sweep_ms=sweep_ms,
+               plain_ms=eager_ms - sweep_ms, geometry=mprgp_step.geometry(bs.device, B, n // 3))
+    out["bound_ms"], out["bound_by"] = bound(nbytes, 100 * B * n)
+    return out
+
+
+def print_mprgp_step(out):
+    c = out["check"]
+    print(f"mprgp step f32 (B={out['B']}, n={out['n']}, (threads, blocks) a lane "
+          f"{out['geometry']}): "
+          f"kernel {out['ms']:.4f} ms (a pass {out['pass_ms']:.4f} less the sweep "
+          f"{out['sweep_ms']:.4f}), bound {out['bound_ms']:.4f} ms ({out['bound_by']}), eager "
+          f"body {out['plain_ms']:.4f} ms; checked over {c['passes']} passes, branches "
+          f"{c['branches']}, worst ulps {c['ulps']}, res rel err {c['res_rel_err']:.2e}")
 
 
 def run_cone_mprgp(As, b, diag, proj, cfg):
@@ -1753,7 +1923,22 @@ def main():
     require(not any(symv.LAUNCHES.values()), "cone run (b) launched a symv kernel")
     require(gemv.LAUNCHES_F32_F64 > 0, "cone run (b) launched no (f32, f64) GEMV")
     print(f"cone mprgp_bb: GEMV launches {gemv.LAUNCHES}, {gemv.LAUNCHES_F32_F64} of them "
-          f"(f32, f64), {f32_launches()} f32")
+          f"(f32, f64), {f32_launches()} f32; mprgp_step launches {mprgp_step.LAUNCHES} for "
+          f"{mprgp.MPRGP_ITERS} passes")
+    require(mprgp_step.LAUNCHES > mprgp.MPRGP_ITERS > 0,
+            "cone run (b): the MPRGP passes did not take the fused step")
+    mp_launches = mprgp_step.LAUNCHES
+    cfg_mp = MPRGPBBConfig(tol=TOL_CONE, max_matvecs=BUDGET_CONE)
+    mp_999 = check_mprgp_step(As, bs, proj_cone, cfg_mp, passes=MPRGP_CHECK_PASSES[0])
+    print_mprgp_step(mp_999)
+    mp_999["launches"] = mp_launches
+    A1, b1, _ = random_qp_batch(torch.Generator(device=dev).manual_seed(N_LARGE), 1, N_LARGE,
+                                torch.float32, diag_boost=1.0)
+    mp_9999 = check_mprgp_step(A1, b1, cone_proj(device=dev), cfg_mp,
+                               passes=MPRGP_CHECK_PASSES[1])
+    print_mprgp_step(mp_9999)
+    del A1, b1
+    torch.cuda.empty_cache()
     cone_launches += gemv.LAUNCHES
     gemv_launches_f32_f64 += gemv.LAUNCHES_F32_F64
 
@@ -2147,7 +2332,10 @@ def main():
         {"name": "apgd_sc_step", "route": "cuda",
          "source": "ccqppy_tpu_torch/csrc/apgd_sc_step.cu", "replaces": None, **sc_999},
         {"name": "apgd_sc_step.box", "route": "cuda",
-         "source": "ccqppy_tpu_torch/csrc/apgd_sc_step.cu", "replaces": None, **sc_box}]}))
+         "source": "ccqppy_tpu_torch/csrc/apgd_sc_step.cu", "replaces": None, **sc_box},
+        {"name": "mprgp_step", "route": "cuda",
+         "source": "ccqppy_tpu_torch/csrc/mprgp_step.cu", "replaces": None, **mp_999,
+         "n9999": mp_9999}]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the start of main")
     print(smi)
     print(json.dumps({"ok": True, "device": {

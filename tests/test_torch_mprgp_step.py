@@ -1,0 +1,585 @@
+"""The fused MPRGP step (``ops/mprgp_step.py``, ``csrc/mprgp_step.cu``).
+
+CPU: when the fused MPRGP loop takes it.  The predicate is asked with the
+iterate made to look like a CUDA tensor, so that each clause is seen to
+refuse on its own (or, for the sets the kernel takes, to accept).  With the
+kernel stood in for by its plain version (its argument checks, then the
+eager body and its select in place, then the next operand) and the graph's
+replay by the eager loop, whole fused solves on the CPU must give the eager
+solve bitwise.  Card (marked ``cuda``): one step against the eager body
+``mprgp._fused_body`` with its select from one state, with lanes in every
+branch, in f32 with f64 sweeps and in f64; whole solves at (64, 999) and
+(1, 9999) against the eager loop (at n = 9999 over twelve draws of b);
+and the kernels of a replayed pass.  This file imports no JAX: the card
+tests compare with the port's own eager body.
+"""
+import dataclasses
+
+import pytest
+import torch
+
+from ccqppy_tpu_torch.models import base, mprgp
+from ccqppy_tpu_torch.models.base import select_lanes, where_lanes
+from ccqppy_tpu_torch.models.mprgp import MPRGPBBConfig, MPRGPConfig
+from ccqppy_tpu_torch.ops import kernels, mprgp_step, sc_step
+from ccqppy_tpu_torch.ops.linop import DenseOperator, LinearOperator, ShardedDenseOperator
+from ccqppy_tpu_torch.ops.projections import (LorentzConeProj, ball, blockwise, box,
+                                              lorentz_cone, segment_product)
+from ccqppy_tpu_torch.parallel import batch
+from qpbench.reference import sets
+from qpbench.reference import solve as reference
+
+SPEC = {"kind": "lorentz_blocks", "block_dim": 3, "mu": 1.0}
+
+
+def problem(n, B, seed, dtype, device="cpu"):
+    """cone999's family at width n: ``A = G G^T + n I``, ``b = -A x_u + 1e-3
+    N(0, 1)``, ``x_u ~ U(-1, 1)``, drawn in f64 on the CPU, made on
+    ``device``."""
+    g = torch.Generator().manual_seed(seed)
+    G = torch.randn((B, n, n), generator=g, dtype=torch.float64).to(device)
+    A = G @ G.mT + n * torch.eye(n, dtype=torch.float64, device=device)
+    xu = (2 * torch.rand((B, n), generator=g, dtype=torch.float64) - 1).to(device)
+    noise = torch.randn((B, n), generator=g, dtype=torch.float64).to(device)
+    b = -(A @ xu[..., None])[..., 0] + 1e-3 * noise
+    return A.to(dtype), b.to(dtype)
+
+
+def cone(dtype, device="cpu", per_block=None):
+    """Lorentz blocks of 3: mu 1, or ``per_block`` (nblk,) mu values."""
+    if per_block is None:
+        return blockwise(lorentz_cone(1.0, dtype=dtype, device=device), 3)
+    return blockwise(LorentzConeProj(per_block.to(device=device, dtype=dtype)), 3,
+                     child_axes=0)
+
+
+class _OwnDot(DenseOperator):
+    """A dense operator with a ``dot`` of its own, as a sharded operator's
+    all-reduce is."""
+
+    def dot(self, u, v):
+        return (u * v).sum(dim=-1)
+
+
+def _sharded(A):
+    """A ``ShardedDenseOperator`` of one rank, built without a process group:
+    only its type is asked."""
+    op = object.__new__(ShardedDenseOperator)
+    op.A_local, op.group, op.world, op.rank = A, None, 1, 0
+    return op
+
+
+def _dispatch_case(case):
+    """(op, b, proj, config, fixed_exp) of a small f64 problem for each case."""
+    A, b = problem(12, 3, 11, torch.float64)
+    op, proj = DenseOperator(A), cone(torch.float64)
+    cfg, fixed = MPRGPBBConfig(tol=1e-8, max_matvecs=500), False
+    one = torch.ones(12, dtype=torch.float64)
+    if case == "sharded":
+        op = _sharded(A)
+    elif case == "own_dot":
+        op = _OwnDot(A)
+    elif case == "box":
+        proj = box(-one, one, torch.float64)
+    elif case == "ball":
+        proj = ball(2.0, dtype=torch.float64)
+    elif case == "segment":
+        proj = segment_product(*[(lorentz_cone(1.0, torch.float64), 3),
+                                 (box(-one[:3], one[:3], torch.float64), 3)] * 2)
+    elif case == "single_cone":
+        proj = lorentz_cone(1.0, torch.float64)
+    elif case == "mu_dtype":
+        proj = cone(torch.float32)
+    elif case == "trace":
+        cfg = dataclasses.replace(cfg, trace_len=4)
+    elif case == "fixed_expansion":
+        cfg, fixed = dataclasses.replace(cfg, expansion="fixed"), True
+    return op, b, proj, cfg, fixed
+
+
+@pytest.fixture
+def looks_cuda(monkeypatch):
+    """Every tensor answers ``is_cuda`` True: the predicate's other clauses
+    are then what decides."""
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+
+
+REFUSED = ["cpu", "sharded", "own_dot", "box", "ball", "segment", "single_cone", "mu_dtype",
+           "trace", "fixed_expansion"]
+
+
+@pytest.mark.parametrize("case", REFUSED)
+def test_predicate_refuses_each_case(case, monkeypatch):
+    op, b, proj, cfg, fixed = _dispatch_case(case)
+    if case != "sharded":
+        # On the CPU every case solves with the eager body ("fixed" is sound
+        # on polyhedral sets only, so a cone lane may end at the budget).
+        launches, it0 = mprgp_step.LAUNCHES, mprgp.MPRGP_ITERS
+        r = mprgp.solve_bb(op, b, proj=proj if case != "mu_dtype" else cone(torch.float64),
+                           config=cfg)
+        assert bool(r.converged.any()) and mprgp.MPRGP_ITERS > it0
+        assert mprgp_step.LAUNCHES == launches
+    if case != "cpu":
+        monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    assert mprgp._step_args(op, b, proj, cfg, fixed) is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("kind", ["shared_mu", "per_block_mu"])
+def test_predicate_takes_lorentz_blocks(kind, dtype, looks_cuda):
+    B, n = 3, 12
+    b = torch.zeros((B, n), dtype=dtype)
+    mu = torch.linspace(0.5, 2.0, n // 3, dtype=dtype) if kind == "per_block_mu" else None
+    proj = cone(dtype, per_block=mu)
+    op = DenseOperator(torch.eye(n, dtype=dtype).expand(B, n, n))
+    for cfg in (MPRGPBBConfig(), MPRGPConfig()):
+        sargs = mprgp._step_args(op, b, proj, cfg, False)
+        assert (sargs.kind, sargs.s0, sargs.d) == ("lorentz", int(mu is not None), 3)
+        assert sargs.p0 is proj.child.mu
+    # b that is not contiguous keeps the eager body.
+    assert mprgp._step_args(op, torch.zeros((n, B), dtype=dtype).T, proj, cfg, False) is None
+
+
+def test_library_carries_the_step():
+    assert {"mprgp_step_lorentz_f32", "mprgp_step_lorentz_f64"} <= set(kernels.SIGNATURES)
+    assert "mprgp_step.cu" in [s.name for s in kernels.sources()]
+
+
+class _Swept(LinearOperator):
+    """The operator of one pass of the eager body, whose one sweep is the
+    given ``A v`` (f64): it records the operand the body swept."""
+
+    def __init__(self, av):
+        self.av, self.seen = av, None
+
+    def matvec(self, x):
+        self.seen = x
+        return self.av
+
+    def matvec_f64(self, x):
+        return self.matvec(x)
+
+
+def plain_operand(proj, s, gamma2):
+    """(psi, prop, v): the eager body's free part of (x, g), proportioning
+    test and operand for every lane, v in f64; a done lane's v is its x."""
+    op = LinearOperator()
+    psi, beta = proj.free_chopped(s.x, s.g)
+    prop = op.dot(beta, beta) < gamma2 * op.dot(psi, psi)
+    x_prop = proj.project(s.x - s.alpha_bb[:, None] * s.g)
+    v = where_lanes(s.pending | s.verifying, s.x, where_lanes(prop, s.p, x_prop))
+    return psi, prop, where_lanes(s.done, s.x, v).double()
+
+
+def plain_pass(proj, config, av, b, s):
+    """One eager pass on the sweep ``av`` with the select of the running
+    lanes, and the operand the body swept."""
+    op = _Swept(av)
+    new = select_lanes(~s.done, mprgp._fused_body(s, op, b, proj, config), s)
+    return new, op.seen
+
+
+def _plain_kernel(proj, calls):
+    """``mprgp_step.step`` and ``operand`` as their plain version, for the
+    CPU: the kernel's argument checks, then the eager body in place (the
+    operand it sweeps must be the ``v`` the last call left, on every
+    running lane), then the next operand."""
+    def check(b, s, psi, v, prop, av=None):
+        mprgp_step._check(b, (b, s.x, s.g, s.p, s.x_prev, s.g_prev, psi),
+                          (v,) if av is None else (av, v), (s.alpha_bb, s.res), (s.mv, s.it),
+                          (s.done, s.pending, s.verifying, prop))
+
+    def fill(s, psi, v, prop, gamma2):
+        # The running lanes' psi first: a loop's first launch writes it into
+        # p, which the operand reads.
+        psi_new, prop_new, _ = plain_operand(proj, s, gamma2)
+        psi.copy_(where_lanes(s.done, psi, psi_new))
+        prop.copy_(prop_new)
+        v.copy_(plain_operand(proj, s, gamma2)[2])
+
+    def operand(sargs, b, s, psi, v, prop, *, gamma2):
+        check(b, s, psi, v, prop)
+        calls.append("operand")
+        fill(s, psi, v, prop, gamma2)
+
+    def step(sargs, av, b, s, psi, v, prop, *, tol, budget, gamma2, tiny):
+        check(b, s, psi, v, prop, av)
+        calls.append("step")
+        cfg = MPRGPBBConfig(tol=tol, max_matvecs=budget, gamma=gamma2**0.5)
+        new, seen = plain_pass(proj, cfg, av, b, s)
+        run = ~s.done
+        assert torch.equal(seen.double()[run], v[run])
+        for t, t_new in zip(s[:-1], new[:-1]):
+            t.copy_(t_new)
+        fill(s, psi, v, prop, gamma2)
+    return operand, step
+
+
+@pytest.mark.parametrize("case", ["shared_mu_f64", "per_block_mu_f64", "shared_mu_f32",
+                                  "mprgp_f64"])
+def test_fused_loop_on_the_plain_step_is_the_eager_solve(case, monkeypatch):
+    """The fused loop, its kernel stood in for by the plain step and its
+    graph's replays by the eager loop, against the eager loop: the same
+    answers bitwise, one operand launch a loop and one step a pass."""
+    dtype = torch.float32 if case.endswith("f32") else torch.float64
+    tol = 1e-5 if dtype == torch.float32 else 1e-8
+    A, b = problem(30, 4, 23, dtype)
+    mu = torch.linspace(0.5, 2.0, 10) if case.startswith("per_block") else None
+    proj = cone(dtype, per_block=mu)
+    x0 = proj.project(-b / A.diagonal(dim1=-2, dim2=-1))
+    cfg = (MPRGPConfig if case.startswith("mprgp") else MPRGPBBConfig)(tol=tol,
+                                                                        max_matvecs=400)
+    solve = mprgp.solve if case.startswith("mprgp") else mprgp.solve_bb
+    want = solve(A, b, x0, proj, cfg)
+
+    calls = []
+    operand, step = _plain_kernel(proj, calls)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(mprgp_step, "operand", operand)
+    monkeypatch.setattr(mprgp_step, "step", step)
+    monkeypatch.setattr(mprgp, "_replay", lambda step_, s: mprgp._fused_loop(step_, s, False))
+    it0 = mprgp.MPRGP_ITERS
+    got = solve(A, b, x0, proj, cfg)
+    passes = mprgp.MPRGP_ITERS - it0
+    assert passes == int(got.iterations.max()) > 3 and bool(got.converged.all())
+    # One operand launch a loop: one loop in f64, one more a resumed audit in f32.
+    assert calls.count("step") == passes and calls[0] == "operand"
+    assert calls.count("operand") >= 1 and (dtype == torch.float32 or calls.count("operand") == 1)
+    for name in ("x", "residual", "matvecs", "iterations", "converged"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+def test_step_refuses_cpu_tensors():
+    B, n = 2, 6
+    z = torch.zeros((B, n))
+    flags = torch.zeros(B, dtype=torch.bool)
+    s = mprgp._FusedState(z, z.clone(), z.clone(), z.clone(), z.clone(), torch.ones(B), flags,
+                          flags.clone(), torch.zeros(B), torch.zeros(B, dtype=torch.int32),
+                          torch.zeros(B, dtype=torch.int32), flags.clone(), z[:, :0])
+    sargs = sc_step.set_args(cone(torch.float32), z)
+    before = mprgp_step.LAUNCHES
+    with pytest.raises(ValueError, match="runs on cuda"):
+        mprgp_step.operand(sargs, z, s, z.clone(), z.double(), flags.clone(), gamma2=1.0)
+    with pytest.raises(ValueError, match="runs on cuda"):
+        mprgp_step.step(sargs, z.double(), z, s, z.clone(), z.double(), flags.clone(),
+                        tol=1e-5, budget=10, gamma2=1.0, tiny=1e-6)
+    assert mprgp_step.LAUNCHES == before
+
+
+def test_a_captured_step_counts_once_a_replay():
+    """A step launch recorded while a CUDA graph captures runs only when the
+    graph replays: the capture counts nothing, and each call of the function
+    ``graph_capture`` yields counts it once."""
+    before = mprgp_step.LAUNCHES
+    with mprgp_step.graph_capture() as replayed:
+        mprgp_step._captured.append(0)
+    assert mprgp_step.LAUNCHES == before and mprgp_step._captured is None
+    replayed()
+    replayed()
+    assert mprgp_step.LAUNCHES == before + 2
+
+
+# ---- on the card ---------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _step_case(dtype, dev, B=64, n=999, per_block=False, seed=17):
+    """(A in f64, b, state, proj) with lanes in every branch, by lane % 8: 0
+    done; 1 an expansion's finish owed (pending); 2 a claim's verification;
+    3 and 7 CG (x inside every cone, g small, p its free part); 4 an
+    expansion (x on the surfaces, g inward, p its free part plus an outward
+    step, so that the feasible step is ~0); 5 and 6 proportioning (g pushes
+    every block outward: the chopped part outweighs the free one).  The
+    other lanes' blocks are inside, on the surface or at the apex by block.
+    Lanes % 16 == 7 and 12 are one matvec short of the budget (50); each
+    lane's g (and the fresh gradient its b gives) is scaled by its own
+    decade in [1e-3, 10], so that the residuals spread and a tol between
+    two of them splits the lanes."""
+    d, nblk = 3, n // 3
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float64)
+
+    mu = (0.5 + 1.5 * torch.rand(nblk, generator=gen, dtype=torch.float64) if per_block
+          else torch.ones(nblk, dtype=torch.float64))
+    proj64 = cone(torch.float64, per_block=mu if per_block else None)
+    lane = torch.arange(B)
+    kind = lane % 8
+    u = rnd(B, nblk, 2)
+    un = u.norm(dim=-1)
+    blk = torch.arange(nblk).expand(B, nblk)
+    inside = (kind[:, None] == 3) | (kind[:, None] == 7) | \
+        ((kind[:, None] <= 2) & (blk % 3 == 0))
+    apex = (kind[:, None] <= 2) & (blk % 3 == 2)
+    z = torch.where(inside, un / mu + 0.5, un / mu)
+    x = proj64.project(torch.where(apex[..., None], 0.0, torch.cat([u, z[..., None]], -1))
+                       .flatten(-2))
+    normal = proj64.normal(x).unflatten(-1, (nblk, d))
+    tangent = rnd(B, nblk, d)
+    tangent = tangent - (tangent * normal).sum(-1, keepdim=True) * normal
+    g = rnd(B, nblk, d)
+    g = torch.where((kind == 4)[:, None, None], 0.3 * tangent - normal, g)
+    g = torch.where(((kind == 5) | (kind == 6))[:, None, None], 5 * normal + 0.1 * tangent, g)
+    g = torch.where(((kind == 3) | (kind == 7))[:, None, None], 1e-2 * g, g)
+    scale = 10 ** (4 * torch.rand(B, generator=gen, dtype=torch.float64) - 3)
+    g = (scale[:, None, None] * g).flatten(-2)
+    psi, _ = proj64.free_chopped(x, g)
+    p = rnd(B, n)
+    p = torch.where(((kind == 3) | (kind == 7))[:, None], psi, p)
+    p = torch.where((kind == 4)[:, None], psi - 0.3 * normal.flatten(-2) * scale[:, None], p)
+    budget = 50
+    s = mprgp._FusedState(
+        x=x, g=g, p=p, x_prev=x + 0.1 * rnd(B, n), g_prev=g + 0.1 * scale[:, None] * rnd(B, n),
+        alpha_bb=(0.5 + 1.5 * torch.rand(B, generator=gen, dtype=torch.float64)) / n,
+        pending=kind == 1, verifying=kind == 2, res=torch.rand(B, generator=gen,
+                                                              dtype=torch.float64),
+        mv=torch.where((lane % 16 == 7) | (lane % 16 == 12), budget - 1,
+                       lane % 7 + 3).to(torch.int32),
+        it=(lane % 5 + 2).to(torch.int32), done=kind == 0,
+        trace=torch.zeros((B, 0), dtype=torch.float64))
+    # b puts the fresh gradient of a finish (at x) and of proportioning (at
+    # P(x - alpha_bb g)) at the lane's scale, so that those lanes' residuals
+    # spread too.
+    A, _ = problem(n, B, seed, torch.float64, dev)
+    x_prop = proj64.project(s.x - s.alpha_bb[:, None] * s.g)
+    w = torch.where(((kind == 5) | (kind == 6))[:, None], x_prop, s.x).to(dev)
+    b = (1e-3 * scale[:, None] * rnd(B, n)).to(dev) - (A @ w[..., None])[..., 0]
+    s = mprgp._FusedState(*(t.to(device=dev, dtype=dtype) if t.is_floating_point()
+                            else t.to(dev) for t in s))
+    return A, b.to(dtype), s, cone(dtype, dev, mu if per_block else None), budget
+
+
+def _branches(proj, s, av, gamma2):
+    """Each lane's branch as the eager body takes it: (fin, cg, ex, pp)."""
+    op = LinearOperator()
+    tiny = base.eps_of(s.x)
+    psi, prop, _ = plain_operand(proj, s, gamma2)
+    pAp = op.dot(s.p, av.to(s.x.dtype)) + tiny
+    take = op.dot(psi, s.p) / pAp <= proj.max_feasible_step(s.x, s.p)
+    fin = s.pending | s.verifying
+    return fin, ~fin & prop & take, ~fin & prop & ~take, ~fin & ~prop
+
+
+def _both(A, b, s, proj, cfg):
+    """The plain and the fused pass from state ``s``: (eager new state, its
+    next (psi, prop, v); the fused state, its psi, prop, v; the branches;
+    the sweep; the eager pass's own operand), the sweep ``A v`` taken by
+    f64 products on the fused operand."""
+    gamma2 = cfg.gamma**2
+    f = mprgp._FusedState(*(t.clone() for t in s))
+    psi = torch.empty_like(f.x)
+    v = torch.empty(f.x.shape, dtype=torch.float64, device=f.x.device)
+    prop = torch.empty_like(f.done)
+    sargs = sc_step.set_args(proj, b)
+    mprgp_step.operand(sargs, b, f, psi, v, prop, gamma2=gamma2)
+    av = (A @ v[..., None])[..., 0]
+    ref, seen = plain_pass(proj, cfg, av, b, s)
+    branches = _branches(proj, s, av, gamma2)
+    av0, swept = av.clone(), v.clone()
+    mprgp_step.step(sargs, av, b, f, psi, v, prop, tol=cfg.tol, budget=cfg.max_matvecs,
+                    gamma2=gamma2, tiny=base.eps_of(b))
+    assert torch.equal(av, av0)
+    return ref, plain_operand(proj, ref, gamma2), (f, psi, prop, v), branches, seen, swept
+
+
+def check_step(A, b, s, proj, budget):
+    """One fused step against the eager body and its select (see
+    ``test_fused_step_matches_the_eager_body``); returns the tol used."""
+    dtype = b.dtype
+    cfg = MPRGPBBConfig(tol=1.0, max_matvecs=budget)
+    ref = _both(A, b, s, proj, cfg)[0]
+    # The new residuals do not depend on tol: put tol in the widest gap
+    # between two of them near the median of the lanes that report theirs.
+    fin, cg, ex, pp = _both(A, b, s, proj, cfg)[3]
+    res = ref.res[~s.done & ~ex].sort().values
+    mid = len(res) // 2
+    k = max(range(mid - 4, mid + 4), key=lambda i: float(res[i + 1] / res[i]))
+    assert float(res[k + 1] / res[k]) > 1.01
+    cfg = dataclasses.replace(cfg, tol=float(torch.sqrt(res[k] * res[k + 1])))
+    ref, (psi_r, prop_r, v_r), (f, psi, prop, v), (fin, cg, ex, pp), seen, v0 = \
+        _both(A, b, s, proj, cfg)
+    run = ~s.done
+    eps = torch.finfo(dtype).eps
+
+    def close(got, want, what, *terms, spread=0.0):
+        """Within 4 ulps of the largest entry of ``want`` and of ``terms``,
+        what it is formed from, beyond ``spread`` (B,) per lane: the new g is
+        the old one less a step along A p, psi is g less its normal part (so
+        p and psi are held at the old and new g's scale too), and the
+        operand v is x, p or a step from x (held at x's and g's)."""
+        err = float(((got.double() - want.double()).abs().amax(-1) - spread).max())
+        scale = max(float(t.double().abs().max()) for t in (want, *terms))
+        assert err <= 4 * eps * scale, (what, err, scale)
+
+    # Every branch is taken on some lane, and each way out of it.
+    assert bool((run & fin & ref.done).any()) and bool((run & fin & ~ref.done).any())
+    assert bool((run & cg & ref.verifying).any()) and bool((run & cg & ~ref.verifying).any())
+    assert bool((run & ex & ref.pending).any()) and bool((run & ex & ref.done).any())
+    assert bool((run & pp & ref.done & (ref.mv < budget)).any())
+    assert bool((run & pp & ~ref.done).any())
+    # Lanes that were done: every field bitwise as it was.
+    for name, a, was in zip(mprgp._FusedState._fields, f, s):
+        assert torch.equal(a[s.done], was[s.done]), name
+    # The flags and counts exactly; vectors to rounding; res to its sum's order.
+    for name in ("mv", "it", "done", "pending", "verifying"):
+        assert torch.equal(getattr(f, name), getattr(ref, name)), name
+    for name in ("x", "g", "p", "x_prev", "g_prev"):
+        terms = (s.g[run], ref.g[run]) if name == "p" else ()
+        close(getattr(f, name)[run], getattr(ref, name)[run], name, getattr(s, name)[run],
+              *terms)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    # res past rtol by no more than 4 ulps of g's scale in each entry of the
+    # residual vector move it.
+    n = b.shape[1]
+    slack = 4 * eps * s.g.abs().amax(-1).maximum(ref.g.abs().amax(-1)) / (3 * n**0.5)
+    assert float(((f.res - ref.res).abs() - slack)[run].div(ref.res[run]).max()) <= rtol
+    torch.testing.assert_close(f.alpha_bb, ref.alpha_bb, rtol=100 * rtol, atol=0)
+    # The operand swept was the eager body's; the next one is too.
+    close(seen.double()[run], v0[run], "v swept", s.x[run])
+    live = ~ref.done
+    assert torch.equal(prop[live], prop_r[live])
+    close(psi[live], psi_r[live], "psi", ref.g[live], s.g[live])
+    # P(x - alpha_bb g) moves by no more than alpha_bb g does: the part of
+    # the difference that alpha_bb's (a quotient of two dots) accounts for
+    # is allowed.
+    spread = ((f.alpha_bb - ref.alpha_bb).abs() * ref.g.abs().amax(-1)).double()
+    close(v[live], v_r[live], "v", ref.x[live], s.x[live], ref.g[live], s.g[live],
+          spread=spread[live])
+    return cfg.tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_block", [False, True], ids=["shared_mu", "per_block_mu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_fused_step_matches_the_eager_body(cuda, dtype, per_block):
+    """One operand launch and one step from one state against the eager body
+    with its select, on the same sweep: lanes in every branch (a finish, a
+    verification, CG, an expansion, proportioning, done, the budget edge),
+    tol in the widest gap between two new residuals.  The flags, mv and it
+    equal; done lanes bitwise kept; x, g, p, x_prev, g_prev and v within 4
+    ulps of the largest entry of what each is formed from (``check_step``);
+    res within 1e-5 relative in f32 (beyond 4 ulps of g's scale in each
+    entry of the residual vector), alpha_bb (a quotient of two dots, the
+    secant pair's of which cancels) within 1e-3."""
+    A, b, s, proj, budget = _step_case(dtype, cuda, per_block=per_block)
+    before = mprgp_step.LAUNCHES
+    check_step(A, b, s, proj, budget)
+    torch.cuda.synchronize()
+    assert mprgp_step.LAUNCHES > before
+
+
+def _solve(A, b, tol, budget):
+    """``solve_batched("mprgp_bb")`` on the dense stack from the cone-Jacobi
+    start, as the benchmark's cell calls it."""
+    op, proj = DenseOperator(A), cone(b.dtype, b.device)
+    x0 = proj.project(-b / op.diagonal())
+    return batch.solve_batched("mprgp_bb", op, b, x0=x0, proj=proj,
+                               config=MPRGPBBConfig(tol=tol, max_matvecs=budget))
+
+
+def _audited_under(A, b, r, tol):
+    """Every lane converged and its x audits under tol in f64 from A and b
+    (the check's audit)."""
+    assert bool(r.converged.all())
+    A64, x64 = A.double(), r.x.double()
+    res = sets.pg_residual(SPEC, x64, reference.bmv(A64, x64) + b.double(), 1e-6)
+    assert float(res.max()) < tol
+
+
+@pytest.mark.cuda
+def test_fused_solve_matches_the_eager_solve(cuda, monkeypatch):
+    """Whole f32 solves at (64, 999), with the step kernel and with the eager
+    loop on the same card: every lane converges, every claim audits under
+    tol in f64, and the matvecs of the batch agree within 5%."""
+    tol = 1e-5
+    A, b = problem(999, 64, 999, torch.float32, cuda)
+    launches, it0 = mprgp_step.LAUNCHES, mprgp.MPRGP_ITERS
+    fused = _solve(A, b, tol, 20_000)
+    torch.cuda.synchronize()
+    assert mprgp_step.LAUNCHES - launches > mprgp.MPRGP_ITERS - it0
+    monkeypatch.setattr(mprgp, "_step_args", lambda *args: None)
+    launches = mprgp_step.LAUNCHES
+    eager = _solve(A, b, tol, 20_000)
+    assert mprgp_step.LAUNCHES == launches
+    for r in (fused, eager):
+        _audited_under(A, b, r, tol)
+    ratio = fused.matvecs.sum().item() / eager.matvecs.sum().item()
+    assert 0.95 <= ratio <= 1.05, ratio
+
+
+@pytest.mark.cuda
+def test_fused_solves_at_n9999_match_the_eager_solves(cuda, monkeypatch):
+    """BASELINE #3's problem at B = 1 (n = 9999, the step on a cluster of
+    eight blocks), twelve right-hand sides b0 + 1e-3 N(0, 1), as the
+    benchmark's calls draw them.  Every solve converges and audits under
+    tol, with the step kernel and with the eager loop.  A lane's pass count
+    at this width moves by tens of percent under a perturbation of a last
+    bit (the eager loop took 48 to 216 passes over such draws on an H100),
+    so the matvecs are compared on the mean over the draws: the two means
+    lie within three standard errors of their difference."""
+    tol = 1e-5
+    A, b0 = _big(cuda, 9999)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    step_args, counts = mprgp._step_args, {"fused": [], "eager": []}
+    for _ in range(12):
+        b = b0 + 1e-3 * torch.randn(b0.shape, generator=gen, device=cuda)
+        for kind in counts:
+            monkeypatch.setattr(mprgp, "_step_args",
+                                step_args if kind == "fused" else lambda *args: None)
+            launches = mprgp_step.LAUNCHES
+            r = _solve(A, b, tol, 20_000)
+            assert (mprgp_step.LAUNCHES > launches) == (kind == "fused")
+            _audited_under(A, b, r, tol)
+            counts[kind].append(float(r.matvecs[0]))
+    f, e = (torch.tensor(counts[k], dtype=torch.float64) for k in ("fused", "eager"))
+    se = float(torch.sqrt(f.var() / len(f) + e.var() / len(e)))
+    assert abs(float(f.mean() - e.mean())) <= 3 * se, (counts, se)
+
+
+def _big(dev, n):
+    """BASELINE #3's problem at B = 1 on the card (as test_torch_mprgp_cone's
+    n = 9999 test draws it)."""
+    g = torch.Generator(device=dev).manual_seed(9999)
+    G = torch.randn((1, n, n), generator=g, device=dev)
+    A = torch.bmm(G, G.mT)
+    del G
+    A.diagonal(dim1=-2, dim2=-1).add_(n)
+    xu = 2 * torch.rand((1, n), generator=g, device=dev) - 1
+    return A, -torch.bmm(A, xu[..., None])[..., 0]
+
+
+@pytest.mark.cuda
+def test_a_replayed_pass_launches_at_most_four_kernels(cuda):
+    """A replayed pass is the GEMV, the step and the flag's two kernels
+    (``~done``, ``any``): in the profiler's device events, at most three
+    kernels lie between two steps of the replays.  In f64, where no audit
+    resumes the loop, the steps are the operand launch, the eager first
+    pass's and one a replay."""
+    from torch.autograd import DeviceType
+
+    A, b = problem(999, 8, 5, torch.float64, cuda)
+    _solve(A, b, 1e-8, 2000)                                  # warm-up
+    torch.cuda.synchronize()
+    it0, launches = mprgp.MPRGP_ITERS, mprgp_step.LAUNCHES
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _solve(A, b, 1e-8, 2000)
+        torch.cuda.synchronize()
+    passes = mprgp.MPRGP_ITERS - it0
+    assert passes > 3 and mprgp_step.LAUNCHES - launches == passes + 1
+    names = [name for _, name in sorted(
+        (e.time_range.start, e.name) for e in prof.events()
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+        and not e.name.startswith(("Memcpy", "Memset")))]
+    steps = [i for i, name in enumerate(names) if "mprgp_step_kernel" in name]
+    assert len(steps) == passes + 1
+    gaps = [j - i - 1 for i, j in zip(steps[2:], steps[3:])]
+    assert max(gaps) <= 3, [names[i:j] for i, j in zip(steps[2:], steps[3:]) if j - i > 4][:2]
