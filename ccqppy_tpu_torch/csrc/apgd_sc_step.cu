@@ -35,38 +35,24 @@
 //     place from the stored trial point.  A lane already done writes only v
 //     and keeps every field.
 //   * Arithmetic: each operation of the eager body, in its order and in the
-//     state's type, rounded as written (`__fmul_rn` and the rest: nvcc never
-//     contracts them into an FMA), so every branch test sees the eager
-//     body's operands, up to the order of the lane's two long sums.  A
-//     division by a Python float is a product with its reciprocal, as
-//     PyTorch computes it on the card (the residual's 1 / (3 n), the box's
-//     1 / gd).
+//     state's type, rounded as written (step_common.cuh's `mul` and the
+//     rest: nvcc never contracts them into an FMA), so every branch test
+//     sees the eager body's operands, up to the order of the lane's two long
+//     sums.  A division by a Python float is a product with its reciprocal,
+//     as PyTorch computes it on the card (the residual's 1 / (3 n), the
+//     box's 1 / gd).
 //   * Any n and any base alignment: plain scalar loads.  Instances for f32
 //     and f64, as the GEMV has.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "step_common.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-// ops/projections.py: ACTIVE_ATOL, ACTIVE_RTOL (numpy.isclose's defaults).
-constexpr double ACTIVE_ATOL = 1e-8;
-constexpr double ACTIVE_RTOL = 1e-5;
-
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float quot(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double quot(double a, double b) { return __ddiv_rn(a, b); }
-__device__ __forceinline__ float root(float a) { return __fsqrt_rn(a); }
-__device__ __forceinline__ double root(double a) { return __dsqrt_rn(a); }
-__device__ __forceinline__ float magnitude(float a) { return fabsf(a); }
-__device__ __forceinline__ double magnitude(double a) { return fabs(a); }
-template <typename T>
-__device__ __forceinline__ T sub(T a, T b) { return add(a, -b); }  // exact, as a - b
 
 // torch.clamp(v, lo, hi) on the card: NaN propagates, else min(max(v, lo), hi).
 template <typename T>
@@ -114,57 +100,6 @@ struct Rows {
 };
 
 // ---- Lorentz blocks --------------------------------------------------------
-
-// LorentzConeProj.project of one block w = (u, z), fixed by these numbers.
-template <typename T>
-struct Cone {
-  T usq;                   // sum of u_i^2 in order
-  T un;                    // ||u||
-  T z;
-  T t;                     // (mu ||u|| + z) / (mu^2 + 1)
-  T tmu;                   // t mu
-  bool inside;             // ||u|| <= mu z
-  bool polar;              // mu ||u|| <= -z
-};
-
-template <typename T, typename W>
-__device__ __forceinline__ Cone<T> cone(W w, int d, T mu) {
-  Cone<T> c;
-  c.usq = T(0);
-  for (int i = 0; i < d - 1; ++i) {
-    const T wi = w(i);
-    c.usq = add(c.usq, mul(wi, wi));
-  }
-  c.un = root(c.usq);
-  c.z = w(d - 1);
-  c.inside = c.un <= mul(mu, c.z);
-  c.polar = mul(mu, c.un) <= -c.z;
-  c.t = quot(add(mul(mu, c.un), c.z), add(mul(mu, mu), T(1)));
-  c.tmu = mul(c.t, mu);
-  return c;
-}
-
-// Coordinate i of the projection, w_i its coordinate before.
-template <typename T>
-__device__ __forceinline__ T cone_at(const Cone<T>& c, T wi, bool last) {
-  if (c.inside) return wi;
-  if (c.polar) return T(0);
-  if (last) return c.t;
-  return mul(c.tmu, c.un != T(0) ? quot(wi, c.un) : T(0));
-}
-
-// is_active: mu z - ||u|| <= ATOL + RTOL |mu z|.
-template <typename T>
-__device__ __forceinline__ bool cone_active(const Cone<T>& c, T mu) {
-  const T mz = mul(mu, c.z);
-  return sub(mz, c.un) <= add(T(ACTIVE_ATOL), mul(T(ACTIVE_RTOL), magnitude(mz)));
-}
-
-// is_apex: ||w|| <= ATOL, absolute.
-template <typename T>
-__device__ __forceinline__ bool cone_apex(const Cone<T>& c) {
-  return root(add(c.usq, mul(c.z, c.z))) <= T(ACTIVE_ATOL);
-}
 
 template <typename T>
 struct LorentzSet {

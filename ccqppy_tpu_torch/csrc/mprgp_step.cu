@@ -56,11 +56,11 @@
 //     and chopped part, with the residual's, psi's, the chopped part's and
 //     psi.Av's sums; pass 3 p and the next operand.
 //   * Arithmetic: each operation of the eager body, in its order and in the
-//     state's type, rounded as written (`__fmul_rn` and the rest: nvcc never
-//     contracts them into an FMA), so every test sees the eager body's
-//     operands, up to the order of a lane's long sums.  A division by a
-//     Python float is a product with its reciprocal, as PyTorch computes it
-//     on the card (the residual's 1 / (3 n)).  The sweep's A v is rounded
+//     state's type, rounded as written (step_common.cuh's `mul` and the
+//     rest: nvcc never contracts them into an FMA), so every test sees the
+//     eager body's operands, up to the order of a lane's long sums.  A
+//     division by a Python float is a product with its reciprocal, as
+//     PyTorch computes it on the card (the residual's 1 / (3 n)).  The sweep's A v is rounded
 //     to the state's type, and A v + b summed in f64 and then rounded, as
 //     models/mprgp.py's _sweep does.
 //   * Any n and any base alignment: plain scalar loads.  Instances for f32
@@ -71,27 +71,13 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "step_common.cuh"
+
 namespace {
 
 constexpr int STEP = 0;        // a whole pass after the sweep
 constexpr int OPERAND = 1;     // the next operand only, from the state as it stands
 constexpr int FIN = 0, CGX = 1, CG = 2, EX = 3, PP = 4;  // a lane's branch
-// ops/projections.py: ACTIVE_ATOL, ACTIVE_RTOL (numpy.isclose's defaults).
-constexpr double ACTIVE_ATOL = 1e-8;
-constexpr double ACTIVE_RTOL = 1e-5;
-
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float quot(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double quot(double a, double b) { return __ddiv_rn(a, b); }
-__device__ __forceinline__ float root(float a) { return __fsqrt_rn(a); }
-__device__ __forceinline__ double root(double a) { return __dsqrt_rn(a); }
-__device__ __forceinline__ float magnitude(float a) { return fabsf(a); }
-__device__ __forceinline__ double magnitude(double a) { return fabs(a); }
-template <typename T>
-__device__ __forceinline__ T sub(T a, T b) { return add(a, -b); }  // exact, as a - b
 // f64 to the state's type, to nearest, as Tensor.to does.
 template <typename T>
 __device__ __forceinline__ T narrow(double a);
@@ -111,58 +97,7 @@ __device__ __forceinline__ T least(T a, T b) { return a != a ? a : (b != b ? b :
 template <typename T>
 __device__ __forceinline__ T most(T a, T b) { return a != a ? a : (b != b ? b : (b > a ? b : a)); }
 
-// ---- Lorentz blocks (as csrc/apgd_sc_step.cu) --------------------------------
-
-// LorentzConeProj.project of one block w = (u, z), fixed by these numbers.
-template <typename T>
-struct Cone {
-  T usq;                   // sum of u_i^2 in order
-  T un;                    // ||u||
-  T z;
-  T t;                     // (mu ||u|| + z) / (mu^2 + 1)
-  T tmu;                   // t mu
-  bool inside;             // ||u|| <= mu z
-  bool polar;              // mu ||u|| <= -z
-};
-
-template <typename T, typename W>
-__device__ __forceinline__ Cone<T> cone(W w, int d, T mu) {
-  Cone<T> c;
-  c.usq = T(0);
-  for (int i = 0; i < d - 1; ++i) {
-    const T wi = w(i);
-    c.usq = add(c.usq, mul(wi, wi));
-  }
-  c.un = root(c.usq);
-  c.z = w(d - 1);
-  c.inside = c.un <= mul(mu, c.z);
-  c.polar = mul(mu, c.un) <= -c.z;
-  c.t = quot(add(mul(mu, c.un), c.z), add(mul(mu, mu), T(1)));
-  c.tmu = mul(c.t, mu);
-  return c;
-}
-
-// Coordinate i of the projection, w_i its coordinate before.
-template <typename T>
-__device__ __forceinline__ T cone_at(const Cone<T>& c, T wi, bool last) {
-  if (c.inside) return wi;
-  if (c.polar) return T(0);
-  if (last) return c.t;
-  return mul(c.tmu, c.un != T(0) ? quot(wi, c.un) : T(0));
-}
-
-// is_active: mu z - ||u|| <= ATOL + RTOL |mu z|.
-template <typename T>
-__device__ __forceinline__ bool cone_active(const Cone<T>& c, T mu) {
-  const T mz = mul(mu, c.z);
-  return sub(mz, c.un) <= add(T(ACTIVE_ATOL), mul(T(ACTIVE_RTOL), magnitude(mz)));
-}
-
-// is_apex: ||w|| <= ATOL, absolute.
-template <typename T>
-__device__ __forceinline__ bool cone_apex(const Cone<T>& c) {
-  return root(add(c.usq, mul(c.z, c.z))) <= T(ACTIVE_ATOL);
-}
+// ---- Lorentz blocks ------------------------------------------------------------
 
 // free_chopped and pg_residual_vec of one block at (x, g), which share the
 // normal of P(x) and its tests: calls each(i, free_i, chopped_i, r_i).

@@ -39,10 +39,11 @@ kernel (``ops.sc_step``, ``csrc/apgd_sc_step.cu``), which computes the
 eager body ``_sc_body`` and the select of the running lanes in place, branch
 for branch, and writes the next GEMV's input: with the flag's two kernels,
 four launches an iteration where the eager body takes ~220.  It does so
-when what it can observe allows: ``b`` a contiguous f32 or f64 CUDA tensor,
+when what it can observe allows (``ops.step_common.fused_set_args``, the
+rule MPRGP's step kernel shares): ``b`` a contiguous f32 or f64 CUDA tensor,
 the operator's ``dot`` and ``global_size`` those of ``LinearOperator`` (a
 sharded operator's all-reduce ``dot`` keeps the eager body), no trace
-(``trace_len == 0``), and a set that ``ops.sc_step.set_args`` takes (a
+(``trace_len == 0``), and a set that ``ops.step_common.set_args`` takes (a
 blockwise Lorentz cone with one mu or one a block, a box with ``(n,)`` or
 ``(B, n)`` bounds).  The operator's output decides last: an ``A v`` in
 another dtype than b (f64 blocks under an f32 b) hands that iteration and
@@ -62,8 +63,9 @@ from ccqppy_tpu_torch.models.base import (SolverConfig, any_lane, default_x0,
                                           pg_residual, record_trace,
                                           select_lanes, where_lanes)
 from ccqppy_tpu_torch.ops import sc_step
-from ccqppy_tpu_torch.ops.linop import LinearOperator, as_operator, power_spectral_bounds
+from ccqppy_tpu_torch.ops.linop import as_operator, power_spectral_bounds
 from ccqppy_tpu_torch.ops.projections import identity
+from ccqppy_tpu_torch.ops.step_common import fused_set_args
 
 #: Iterations of ``solve_sc`` in this process, by path: the fused kernel on
 #: the card, or the eager body.
@@ -259,7 +261,7 @@ def solve_sc(A, b, x0=None, proj=None, config: APGDSCConfig = APGDSCConfig()):
                verifying=torch.zeros(B, dtype=torch.bool, device=b.device),
                trace=init_trace(config, B, b.dtype, b.device))
 
-    sargs = _fused_set_args(op, b, proj, config)
+    sargs = fused_set_args(op, b, proj, config.trace_len)
     if sargs is not None:
         s = _sc_loop_fused(op, b, s, proj, L, beta, sargs, config)
     else:
@@ -292,19 +294,6 @@ def _sc_body(s, op, b, proj, L, beta, config, Av=None):
     verifying = ~s.verifying & (res < config.tol) & ~done
     return _SCState(x_next, y_next, res, mv, s.it + 1, done, verifying,
                     record_trace(s.trace, s.it, res))
-
-
-def _fused_set_args(op, b, proj, config):
-    """``ops.sc_step.set_args`` of ``proj`` when ``solve_sc`` may run the
-    fused step (see the module docstring), else None."""
-    if not (b.is_cuda and b.is_contiguous() and b.dtype in (torch.float32, torch.float64)):
-        return None
-    if type(op).dot is not LinearOperator.dot or \
-            type(op).global_size is not LinearOperator.global_size:
-        return None
-    if config.trace_len:
-        return None
-    return sc_step.set_args(proj, b)
 
 
 def _sc_loop_eager(op, b, s, proj, L, beta, config, Av=None):

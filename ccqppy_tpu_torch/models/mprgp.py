@@ -50,15 +50,18 @@ In f64 the sweeps and the claims are the JAX package's.
 
 **On the card** the fused loop on a dense stack replays a CUDA graph of a
 pass after its first (``_replay``).  Where the set is a Lorentz cone over
-blocks (one ``mu`` or one a block, in b's dtype; ``ops.sc_step.set_args``'s
-"lorentz" kind), b is a contiguous f32 or f64 tensor, the operator's
-reductions are ``LinearOperator``'s, the expansion is "bb" and no trace is
-kept (``trace_len == 0``), a pass is the sweep and one launch of the fused
-step kernel (``ops.mprgp_step``, ``csrc/mprgp_step.cu``), which computes
-the eager body and the select of the running lanes in place and writes the
-next sweep's operand; one more launch a loop puts the first operand in
-place.  Every other case, the CPU included, runs the eager body, which is
-the kernel's plain version (``_step_args`` decides, from the input alone).
+blocks (one ``mu`` or one a block, in b's dtype;
+``ops.step_common.set_args``'s "lorentz" kind), b is a contiguous f32 or
+f64 tensor, the operator's reductions are ``LinearOperator``'s, the
+expansion is "bb" and no trace is kept (``trace_len == 0``), a pass is the
+sweep and one launch of the fused step kernel (``ops.mprgp_step``,
+``csrc/mprgp_step.cu``), which computes the eager body and the select of
+the running lanes in place and writes the next sweep's operand; one more
+launch a loop puts the first operand in place.  Every other case, the CPU
+included, runs the eager body, which is the kernel's plain version
+(``_step_args`` decides, from the input alone: the rule
+``ops.step_common.fused_set_args`` that ``apgd.solve_sc`` shares, and
+MPRGP's own clauses).
 
 Telemetry: ``MPRGP_ITERS`` counts the loop's iterations on the host (a
 pass of the body, every form), ``MPRGP_AUDITS`` the audit sweeps, and the
@@ -79,9 +82,10 @@ from ccqppy_tpu_torch.models.base import (SolverConfig, any_lane, default_x0,
                                           make_result, pg_residual,
                                           record_trace, select_lanes, span,
                                           where_lanes)
-from ccqppy_tpu_torch.ops import gemv, mprgp_step, sc_step
+from ccqppy_tpu_torch.ops import kernels, mprgp_step
 from ccqppy_tpu_torch.ops.linop import DenseOperator, LinearOperator, as_operator
 from ccqppy_tpu_torch.ops.projections import identity
+from ccqppy_tpu_torch.ops.step_common import fused_set_args
 
 #: Passes of either form's loop body in this process, counted on the host.
 MPRGP_ITERS = 0
@@ -209,15 +213,14 @@ def _replay(step, s):
     launched by the device, so a pass costs the host one launch and its
     flag's read (in place of ~600 launches for the eager body at B = 1, or
     of two for the fused step).  The GEMV's and the step kernel's counters
-    count each replay's launches (``graph_capture``)."""
+    count each replay's launches (``kernels.graph_capture``)."""
     global MPRGP_ITERS
     static = _private(s)
     graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     pool, _ = _GRAPH_POOLS.get(s.x.device, (None, None))
     pool = torch.cuda.graph_pool_handle() if pool is None else pool
-    with torch.cuda.stream(stream), gemv.graph_capture() as replayed, \
-            mprgp_step.graph_capture() as stepped:
+    with torch.cuda.stream(stream), kernels.graph_capture() as replayed:
         # Only this thread's calls are checked: a profiler's threads may
         # touch the card while a traced call captures.
         graph.capture_begin(pool=pool, capture_error_mode="thread_local")
@@ -233,7 +236,6 @@ def _replay(step, s):
             MPRGP_ITERS += 1
             graph.replay()
             replayed()
-            stepped()
     return static
 
 
@@ -251,16 +253,13 @@ def _private(s):
 
 
 def _step_args(op, b, proj, config, fixed_exp):
-    """``ops.sc_step.set_args`` of ``proj`` when the fused loop runs the step
-    kernel (see the module docstring), else None: the eager body."""
-    if not (_graphed(op, b) and b.is_contiguous() and b.dtype in (torch.float32, torch.float64)):
+    """``ops.step_common.fused_set_args`` of ``proj`` when the fused loop runs
+    the step kernel (see the module docstring), else None: the eager body.
+    MPRGP's own clauses: a graphed dense stack, the operator's own
+    ``reduce_min``, the "bb" expansion and a Lorentz-block set."""
+    if not _graphed(op, b) or fixed_exp or type(op).reduce_min is not LinearOperator.reduce_min:
         return None
-    if any(getattr(type(op), f) is not getattr(LinearOperator, f)
-           for f in ("dot", "reduce_min", "global_size")):
-        return None
-    if config.trace_len or fixed_exp:
-        return None
-    sargs = sc_step.set_args(proj, b)
+    sargs = fused_set_args(op, b, proj, config.trace_len)
     return sargs if sargs is not None and sargs.kind == "lorentz" else None
 
 

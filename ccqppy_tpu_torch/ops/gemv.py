@@ -20,15 +20,13 @@ multiple of 128) has no counterpart here.
 """
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 from ccqppy_tpu_torch.ops import kernels
 
 #: Number of kernel launches in this process.  Only a CUDA launch adds to
 #: it; the plain version on the CPU does not.  A launch captured in a CUDA
-#: graph counts once a replay (``graph_capture``).
+#: graph counts once a replay (``kernels.graph_capture``).
 LAUNCHES = 0
 #: The bf16 launches among ``LAUNCHES`` (the cheap sweeps of ``CastDense``
 #: and ``MixedPrecDense``).
@@ -101,16 +99,9 @@ def batched_gemv(A, x):
     y = torch.empty((B, n), dtype=x.dtype, device=A.device)
     if B == 0 or n == 0:
         return y
-    fn = getattr(kernels.load(), INSTANCES[A.dtype, x.dtype])
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = fn(A.data_ptr(), x.data_ptr(), y.data_ptr(), B, n, stream)
-    if err != 0:
-        raise RuntimeError(f"batched_gemv kernel launch failed with CUDA error {err}")
-    if _captured is None:
-        _count(A.dtype, x.dtype, B)
-    else:
-        _captured.append((A.dtype, x.dtype, B))
+    kernels.launch(INSTANCES[A.dtype, x.dtype], A.device, A.data_ptr(), x.data_ptr(),
+                   y.data_ptr(), B, n)
+    kernels.count(_count, A.dtype, x.dtype, B)
     return y
 
 
@@ -126,19 +117,3 @@ def _count(a_dtype, x_dtype, B):
     elif x_dtype == torch.float64:
         LAUNCHES_F32_F64 += 1
 
-
-#: The launches recorded by the CUDA graph capture in progress, or None.
-_captured = None
-
-
-@contextlib.contextmanager
-def graph_capture():
-    """Around a CUDA graph's capture: the launches ``batched_gemv`` records
-    there run only when the graph replays, so they are not counted; the
-    function yielded counts them once, for one replay."""
-    global _captured
-    _captured = taken = []
-    try:
-        yield lambda: [_count(*launch) for launch in taken]
-    finally:
-        _captured = None

@@ -1,14 +1,20 @@
-"""Build and load the package's hand-written CUDA kernels.
+"""Build, load and launch the package's hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into one shared library with a plain C interface, at first use, and loaded
 with ``ctypes``.  The library lands in ``build/ccqppy_tpu_torch/`` beside
 the package (a directory git ignores); its name carries a hash of the
-sources and flags, so an unchanged tree is built once.  Nothing is built or
-loaded when this module is imported.
+sources, the headers beside them (``*.cuh``) and the flags, so an unchanged
+tree is built once.  Nothing is built or loaded when this module is
+imported.
+
+``launch`` calls an entry point on the current stream; ``count`` and
+``graph_capture`` keep the wrappers' launch counters true under CUDA graph
+capture, where a recorded launch runs once each replay.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -16,6 +22,8 @@ import os
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "ccqppy_tpu_torch"
@@ -69,8 +77,12 @@ def nvcc_command(out, srcs, nvcc="nvcc"):
 
 
 def library_path(srcs):
+    """The library built from ``srcs``: its name hashes the flags, the
+    sources and every header (``*.cuh``) in their directories, which the
+    sources may include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
+    headers = {hdr for src in srcs for hdr in Path(src).parent.glob("*.cuh")}
+    for src in [*srcs, *sorted(headers)]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libccqppy_kernels_{h.hexdigest()[:16]}.so"
@@ -110,3 +122,40 @@ def load():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def launch(name, device, *args):
+    """Call entry point ``name`` with ``args`` and the current stream of CUDA
+    ``device``, under that device; a nonzero return is a ``RuntimeError``
+    naming the entry point."""
+    fn = getattr(load(), name)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
+#: The counts deferred by the CUDA graph capture in progress, or None.
+_captured = None
+
+
+def count(add, *args):
+    """Count a launch that was made: ``add(*args)`` now, or, while a CUDA
+    graph captures (``graph_capture``), once for each replay."""
+    if _captured is None:
+        add(*args)
+    else:
+        _captured.append((add, args))
+
+
+@contextlib.contextmanager
+def graph_capture():
+    """Around a CUDA graph's capture: the launches recorded there run only
+    when the graph replays, so they are not counted; the function yielded
+    counts each of them once, for one replay."""
+    global _captured
+    _captured = taken = []
+    try:
+        yield lambda: [add(*args) for add, args in taken]
+    finally:
+        _captured = None

@@ -13,29 +13,29 @@ proportioning test ``prop``, and the next operand ``v`` in f64.  A lane
 already done keeps every field.  ``operand`` runs the same kernel on its
 last part alone: the first operand of a loop, from the state as it stands.
 
-It takes one set, described by ``ops.sc_step.set_args``'s "lorentz" kind: a
-``BlockwiseProj`` of a ``LorentzConeProj`` whose ``mu`` is one number or
-one a block, in the state's dtype.  Its plain version is the eager body of
+It takes one set, described by ``ops.step_common.set_args``'s "lorentz"
+kind: a ``BlockwiseProj`` of a ``LorentzConeProj`` whose ``mu`` is one
+number or one a block, in the state's dtype.  Its plain version is the eager body of
 ``models.mprgp._solve_fused`` (``_fused_body``), which every other set, the
 CPU and the sharded operators run, and so does a solve that keeps a
 residual trace (``trace_len > 0``): the kernel records none.  On a CPU
-tensor ``step`` and ``operand`` raise: no path calls them there.  ``LAUNCHES`` counts the launches that ran; one
-recorded while a CUDA graph captures counts once a replay
-(``graph_capture``), as the GEMV's do.
+tensor ``step`` and ``operand`` raise: no path calls them there.
+``LAUNCHES`` counts the launches that ran; one recorded while a CUDA graph
+captures counts once a replay (``kernels.graph_capture``), as the GEMV's
+do.
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import torch
 
 from ccqppy_tpu_torch.ops import kernels
+from ccqppy_tpu_torch.ops.step_common import SUFFIX, check_state
 
 #: Number of kernel launches in this process (both modes).
 LAUNCHES = 0
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _STEP, _OPERAND = 0, 1
 #: Units (Lorentz blocks) a lane needs before it takes a cluster of blocks.
 _WIDE_UNITS = 2048
@@ -61,22 +61,14 @@ def geometry(device, B, units):
 
 def _check(b, rows, v, lanes, ints, flags):
     """Shapes, dtypes, devices and layout of the state against b's."""
-    if b.dtype not in _SUFFIX:
-        raise TypeError(f"the fused MPRGP step takes f32 or f64, not {b.dtype}")
     B, n = b.shape
-    for tensors, shape, dtype in ((rows, (B, n), b.dtype), (v, (B, n), torch.float64),
-                                  (lanes, (B,), b.dtype), (ints, (B,), torch.int32),
-                                  (flags, (B,), torch.bool)):
-        for t in tensors:
-            if tuple(t.shape) != shape or t.dtype != dtype or t.device != b.device \
-                    or not t.is_contiguous():
-                raise ValueError(f"the fused MPRGP step takes contiguous {dtype} of shape "
-                                 f"{shape} on {b.device}, got {t.dtype} {tuple(t.shape)} "
-                                 f"on {t.device}")
+    check_state("the fused MPRGP step", b,
+                ((rows, ((B, n),), b.dtype), (v, ((B, n),), torch.float64),
+                 (lanes, ((B,),), b.dtype), (ints, ((B,),), torch.int32),
+                 (flags, ((B,),), torch.bool)))
 
 
 def _launch(mode, sargs, av, b, s, psi, v, prop, tol, budget, gamma2, tiny):
-    global LAUNCHES
     if b.device.type != "cuda":
         raise ValueError(f"the fused MPRGP step runs on cuda, not {b.device}")
     if sargs.kind != "lorentz":
@@ -87,21 +79,19 @@ def _launch(mode, sargs, av, b, s, psi, v, prop, tol, budget, gamma2, tiny):
     B, n = b.shape
     if B == 0 or n == 0:
         return
-    fn = getattr(kernels.load(), f"mprgp_step_lorentz_{_SUFFIX[b.dtype]}")
-    with torch.cuda.device(b.device):
-        stream = torch.cuda.current_stream(b.device).cuda_stream
-        err = fn((v if av is None else av).data_ptr(),
-                 *(t.data_ptr() for t in (b, s.x, s.g, s.p, s.x_prev, s.g_prev, psi, v,
-                                          s.alpha_bb, s.res, s.mv, s.it, s.done, s.pending,
-                                          s.verifying, prop)),
-                 sargs.p0.data_ptr(), sargs.s0, sargs.d, B, n, float(tol), int(budget),
-                 float(gamma2), float(tiny), mode, *geometry(b.device, B, n // sargs.d), stream)
-    if err != 0:
-        raise RuntimeError(f"MPRGP step kernel launch failed with CUDA error {err}")
-    if _captured is None:
-        LAUNCHES += 1
-    else:
-        _captured.append(mode)
+    kernels.launch(f"mprgp_step_lorentz_{SUFFIX[b.dtype]}", b.device,
+                   (v if av is None else av).data_ptr(),
+                   *(t.data_ptr() for t in (b, s.x, s.g, s.p, s.x_prev, s.g_prev, psi, v,
+                                            s.alpha_bb, s.res, s.mv, s.it, s.done, s.pending,
+                                            s.verifying, prop)),
+                   sargs.p0.data_ptr(), sargs.s0, sargs.d, B, n, float(tol), int(budget),
+                   float(gamma2), float(tiny), mode, *geometry(b.device, B, n // sargs.d))
+    kernels.count(_count)
+
+
+def _count():
+    global LAUNCHES
+    LAUNCHES += 1
 
 
 def step(sargs, av, b, s, psi, v, prop, *, tol, budget, gamma2, tiny):
@@ -123,25 +113,3 @@ def operand(sargs, b, s, psi, v, prop, *, gamma2):
     stands: ``psi`` and ``prop`` of ``(x, g)``, and ``v``, written in place
     (a done lane's ``v`` is its ``x``).  Arguments as ``step``'s."""
     _launch(_OPERAND, sargs, None, b, s, psi, v, prop, 0.0, 0, gamma2, 0.0)
-
-
-#: The launches recorded by the CUDA graph capture in progress, or None.
-_captured = None
-
-
-@contextlib.contextmanager
-def graph_capture():
-    """Around a CUDA graph's capture: the launches recorded there run only
-    when the graph replays, so they are not counted; the function yielded
-    counts them once, for one replay."""
-    global _captured
-    _captured = taken = []
-    try:
-        yield lambda: _count(len(taken))
-    finally:
-        _captured = None
-
-
-def _count(k):
-    global LAUNCHES
-    LAUNCHES += k

@@ -185,14 +185,9 @@ def _launch(name, A, x, n, tile, packed, slices):
     if slices is None:
         slices = row_slices(B, T, tile, sm_count(A.device.index))
     part = torch.empty(scratch_shape(B, T, slices, tile), dtype=torch.float32, device=A.device)
-    lib = kernels.load()
-    fn = lib.batched_symv_packed_f32 if packed else lib.batched_symv_full_f32
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = fn(A.data_ptr(), x.data_ptr(), y.data_ptr(), part.data_ptr(),
-                 B, n, tile, slices, stream)
-    if err != 0:
-        raise RuntimeError(f"batched_symv kernel launch failed with CUDA error {err}")
+    kernels.launch("batched_symv_packed_f32" if packed else "batched_symv_full_f32", A.device,
+                   A.data_ptr(), x.data_ptr(), y.data_ptr(), part.data_ptr(), B, n, tile,
+                   slices)
     LAUNCHES[name] += 1
     return y
 

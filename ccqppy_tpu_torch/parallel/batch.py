@@ -134,17 +134,23 @@ def make_batch_mesh(n_devices=None, axis="batch"):
     return mesh_1d(n_devices, axis)
 
 
-def _phase_configs(config, phase1_matvecs):
-    """The two phases' configs: phase 1 on ``phase1_matvecs``, phase 2 on
-    what phase 1 left of ``config.max_matvecs`` (at least 4)."""
+def _phases(solver, config, phase1_matvecs):
+    """(solver function, phase 1's config, phase 2's ``run2(A2, b2, x02,
+    proj2, keys2)``): phase 1 on ``phase1_matvecs``, phase 2 on what phase 1
+    left of ``config.max_matvecs`` (at least 4)."""
     remaining = int(config.max_matvecs) - int(phase1_matvecs)
     if remaining < 4:
         raise ValueError(
             f"phase1_matvecs={phase1_matvecs} leaves {remaining} < 4 matvecs "
             f"for phase 2 of a max_matvecs={config.max_matvecs} budget; pick "
             "a smaller phase-1 budget (~2x the median solve cost)")
-    return (dataclasses.replace(config, max_matvecs=int(phase1_matvecs)),
-            dataclasses.replace(config, max_matvecs=remaining))
+    fn = _get_solver(solver)
+    cfg2 = dataclasses.replace(config, max_matvecs=remaining)
+
+    def run2(A2, b2, x02, proj2, keys2):
+        return fn(A2, b2, x0=x02, proj=proj2, **_solver_kwargs(cfg2, keys2))
+
+    return fn, dataclasses.replace(config, max_matvecs=int(phase1_matvecs)), run2
 
 
 def solve_batched_compact(solver, A, b, phase1_matvecs, x0=None, proj=None,
@@ -159,12 +165,7 @@ def solve_batched_compact(solver, A, b, phase1_matvecs, x0=None, proj=None,
     continuation is not trajectory-identical to an uninterrupted solve
     (step sizes re-seed at the restart): convergence semantics, not
     trajectories, are preserved."""
-    fn = _get_solver(solver)
-    cfg1, cfg2 = _phase_configs(config, phase1_matvecs)
-
-    def run2(A2, b2, x02, proj2, keys2):
-        return fn(A2, b2, x0=x02, proj=proj2, **_solver_kwargs(cfg2, keys2))
-
+    fn, cfg1, run2 = _phases(solver, config, phase1_matvecs)
     with span("ccqppy.solve"):
         with span("ccqppy.phase1"):
             r1 = _solve_batched(fn, A, b, x0, proj, cfg1, keys, proj_batched)
@@ -243,12 +244,7 @@ def solve_batched_fused_compact(solver, A, b, phase1_matvecs, x0=None,
         if keys is not None:
             rng.check_keys(keys, b.shape[0], b.device)
         _check_lane_proj(proj, b.shape[0], proj_batched)
-        cfg1, cfg2 = _phase_configs(config, phase1_matvecs)
-        fn = _get_solver(solver)
-
-        def run2(A2, b2, x02, proj2, keys2):
-            return fn(A2, b2, x0=x02, proj=proj2, **_solver_kwargs(cfg2, keys2))
-
+        fn, cfg1, run2 = _phases(solver, config, phase1_matvecs)
         with span("ccqppy.phase1"):
             r = fn(A, b, x0=x0, proj=proj, **_solver_kwargs(cfg1, keys))
         # Phase 2 draws from a stream of its own: each lane's key with 1 folded in.

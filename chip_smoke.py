@@ -199,7 +199,8 @@ from ccqppy_tpu_torch.models.direct import solve_direct_batched, spd_inverse_bat
 from ccqppy_tpu_torch.models.mprgp import MPRGPBBConfig
 from ccqppy_tpu_torch.models.pcg import PCGConfig
 from ccqppy_tpu_torch.models.spg import SPGConfig
-from ccqppy_tpu_torch.ops import collectives, gemv, kernels, mprgp_step, sc_step, symv
+from ccqppy_tpu_torch.ops import (collectives, gemv, kernels, mprgp_step, sc_step,
+                                  step_common, symv)
 from ccqppy_tpu_torch.ops.linop import (BlockSparseOperator, CastDense, DenseOperator,
                                         LinearOperator, MixedPrecDense, ShardedDenseOperator,
                                         SpectralDense, SymmetricPackedDense,
@@ -466,8 +467,8 @@ def check_sc_step(As, bs, proj):
     select, which it replaces."""
     B, n = bs.shape
     dev = bs.device
-    sargs = sc_step.set_args(proj, bs)
-    require(sargs is not None, f"sc_step.set_args refused {type(proj).__name__}")
+    sargs = step_common.set_args(proj, bs)
+    require(sargs is not None, f"step_common.set_args refused {type(proj).__name__}")
     x = proj.project(-bs / As.diagonal(dim1=-2, dim2=-1))
     Av = gemv.batched_gemv(As, x)
     L = torch.full((B, 1), float(n) * 4, device=dev)
@@ -587,9 +588,9 @@ def check_mprgp_step(As, bs, proj, cfg, passes):
     op = DenseOperator(As)
     diag = As.diagonal(dim1=-2, dim2=-1)
     s = mprgp._fused_start(op, bs, proj.project(-bs / diag), proj, cfg)
-    sargs = sc_step.set_args(proj, bs)
+    sargs = step_common.set_args(proj, bs)
     require(sargs is not None and sargs.kind == "lorentz",
-            f"sc_step.set_args refused {type(proj).__name__}")
+            f"step_common.set_args refused {type(proj).__name__}")
     gamma2, tiny = cfg.gamma**2, eps_of(bs)
     eps = torch.finfo(bs.dtype).eps
     branches = dict.fromkeys(("finish", "cg", "expansion", "proportioning", "done"), 0)

@@ -21,7 +21,7 @@ import torch
 from ccqppy_tpu_torch.models import base, mprgp
 from ccqppy_tpu_torch.models.base import select_lanes, where_lanes
 from ccqppy_tpu_torch.models.mprgp import MPRGPBBConfig, MPRGPConfig
-from ccqppy_tpu_torch.ops import kernels, mprgp_step, sc_step
+from ccqppy_tpu_torch.ops import mprgp_step, step_common
 from ccqppy_tpu_torch.ops.linop import DenseOperator, LinearOperator, ShardedDenseOperator
 from ccqppy_tpu_torch.ops.projections import (LorentzConeProj, ball, blockwise, box,
                                               lorentz_cone, segment_product)
@@ -106,6 +106,9 @@ def looks_cuda(monkeypatch):
 
 REFUSED = ["cpu", "sharded", "own_dot", "box", "ball", "segment", "single_cone", "mu_dtype",
            "trace", "fixed_expansion"]
+#: The cases that MPRGP's own clauses refuse; the rule it shares with
+#: ``apgd.solve_sc`` (``step_common.fused_set_args``) refuses the rest.
+MPRGP_ONLY = ["box", "fixed_expansion"]
 
 
 @pytest.mark.parametrize("case", REFUSED)
@@ -122,6 +125,8 @@ def test_predicate_refuses_each_case(case, monkeypatch):
     if case != "cpu":
         monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     assert mprgp._step_args(op, b, proj, cfg, fixed) is None
+    shared = step_common.fused_set_args(op, b, proj, cfg.trace_len)
+    assert (shared is None) == (case not in MPRGP_ONLY)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
@@ -136,13 +141,9 @@ def test_predicate_takes_lorentz_blocks(kind, dtype, looks_cuda):
         sargs = mprgp._step_args(op, b, proj, cfg, False)
         assert (sargs.kind, sargs.s0, sargs.d) == ("lorentz", int(mu is not None), 3)
         assert sargs.p0 is proj.child.mu
+        assert sargs == step_common.fused_set_args(op, b, proj, cfg.trace_len)
     # b that is not contiguous keeps the eager body.
     assert mprgp._step_args(op, torch.zeros((n, B), dtype=dtype).T, proj, cfg, False) is None
-
-
-def test_library_carries_the_step():
-    assert {"mprgp_step_lorentz_f32", "mprgp_step_lorentz_f64"} <= set(kernels.SIGNATURES)
-    assert "mprgp_step.cu" in [s.name for s in kernels.sources()]
 
 
 class _Swept(LinearOperator):
@@ -249,36 +250,6 @@ def test_fused_loop_on_the_plain_step_is_the_eager_solve(case, monkeypatch):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
 
 
-def test_step_refuses_cpu_tensors():
-    B, n = 2, 6
-    z = torch.zeros((B, n))
-    flags = torch.zeros(B, dtype=torch.bool)
-    s = mprgp._FusedState(z, z.clone(), z.clone(), z.clone(), z.clone(), torch.ones(B), flags,
-                          flags.clone(), torch.zeros(B), torch.zeros(B, dtype=torch.int32),
-                          torch.zeros(B, dtype=torch.int32), flags.clone(), z[:, :0])
-    sargs = sc_step.set_args(cone(torch.float32), z)
-    before = mprgp_step.LAUNCHES
-    with pytest.raises(ValueError, match="runs on cuda"):
-        mprgp_step.operand(sargs, z, s, z.clone(), z.double(), flags.clone(), gamma2=1.0)
-    with pytest.raises(ValueError, match="runs on cuda"):
-        mprgp_step.step(sargs, z.double(), z, s, z.clone(), z.double(), flags.clone(),
-                        tol=1e-5, budget=10, gamma2=1.0, tiny=1e-6)
-    assert mprgp_step.LAUNCHES == before
-
-
-def test_a_captured_step_counts_once_a_replay():
-    """A step launch recorded while a CUDA graph captures runs only when the
-    graph replays: the capture counts nothing, and each call of the function
-    ``graph_capture`` yields counts it once."""
-    before = mprgp_step.LAUNCHES
-    with mprgp_step.graph_capture() as replayed:
-        mprgp_step._captured.append(0)
-    assert mprgp_step.LAUNCHES == before and mprgp_step._captured is None
-    replayed()
-    replayed()
-    assert mprgp_step.LAUNCHES == before + 2
-
-
 # ---- on the card ---------------------------------------------------------------
 
 
@@ -378,7 +349,7 @@ def _both(A, b, s, proj, cfg):
     psi = torch.empty_like(f.x)
     v = torch.empty(f.x.shape, dtype=torch.float64, device=f.x.device)
     prop = torch.empty_like(f.done)
-    sargs = sc_step.set_args(proj, b)
+    sargs = step_common.set_args(proj, b)
     mprgp_step.operand(sargs, b, f, psi, v, prop, gamma2=gamma2)
     av = (A @ v[..., None])[..., 0]
     ref, seen = plain_pass(proj, cfg, av, b, s)

@@ -64,6 +64,20 @@ def test_library_name_follows_the_sources(tmp_path, monkeypatch):
     assert kernels.library_path([src]) != first
 
 
+def test_library_name_follows_the_headers(tmp_path):
+    """A header beside the sources (``csrc/*.cuh``), which they include, is
+    part of the library's name: an edit to it builds a new library, while
+    ``sources`` stays what nvcc compiles."""
+    for src in kernels.CSRC_DIR.iterdir():
+        shutil.copy(src, tmp_path / src.name)
+    srcs = sorted(tmp_path.glob("*.cu"))
+    assert [s.name for s in srcs] == [s.name for s in kernels.sources()]
+    header = tmp_path / "step_common.cuh"
+    first = kernels.library_path(srcs)
+    header.write_text(header.read_text() + "// edited\n")
+    assert kernels.library_path(srcs) != first
+
+
 def test_cuda_entry_points_raise_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")

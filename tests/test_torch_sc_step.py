@@ -21,7 +21,7 @@ import torch
 
 from ccqppy_tpu_torch.models import apgd
 from ccqppy_tpu_torch.models.base import select_lanes
-from ccqppy_tpu_torch.ops import kernels, sc_step
+from ccqppy_tpu_torch.ops import sc_step, step_common
 from ccqppy_tpu_torch.ops.linop import (BlockSparseOperator, LinearOperator, SpectralDense,
                                         estimate_spectral_bounds)
 from ccqppy_tpu_torch.ops.projections import (LorentzConeProj, ball, blockwise, box,
@@ -80,7 +80,7 @@ def test_dispatch_runs_the_eager_body(case, monkeypatch):
     assert apgd.SC_STEPS_EAGER - eager == int(r.iterations.max())
     assert apgd.SC_STEPS_FUSED == fused
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
-    sargs = apgd._fused_set_args(op, b, proj, cfg)
+    sargs = step_common.fused_set_args(op, b, proj, cfg.trace_len)
     # On the card only the first case would take the kernel.
     assert (sargs is not None) == (case == "cpu")
 
@@ -100,25 +100,19 @@ def test_predicate_takes_lorentz_blocks_and_boxes(kind, looks_cuda):
     }[kind]
     op = SpectralDense(torch.eye(n, dtype=torch.float64).expand(B, n, n),
                        torch.ones(B, dtype=torch.float64), torch.ones(B, dtype=torch.float64))
-    sargs = apgd._fused_set_args(op, b, proj, apgd.APGDSCConfig())
+    sargs = step_common.fused_set_args(op, b, proj, 0)
     if kind == "box_lanes":
         # A broadcast (stride-0) bound is not contiguous: the eager body.
         assert sargs is None
         proj = box(lb.expand(B, n).contiguous(), ub.expand(B, n).contiguous(), torch.float64)
-        sargs = apgd._fused_set_args(op, b, proj, apgd.APGDSCConfig())
+        sargs = step_common.fused_set_args(op, b, proj, 0)
     assert (sargs.kind, sargs.s0, sargs.d) == want
     if sargs.kind == "box":
         assert sargs.s1 == sargs.s0 and sargs.p1 is proj.ub
     # A parameter in another dtype than the iterates, or blocks that do not
     # tile n, keep the eager body.
-    assert sc_step.set_args(proj.float(), b) is None
-    assert sc_step.set_args(blockwise(lorentz_cone(1.0, torch.float64), 5), b) is None
-
-
-def test_library_carries_the_step():
-    assert {f"apgd_sc_step_{k}_{t}" for k in ("lorentz", "box") for t in ("f32", "f64")} <= \
-        set(kernels.SIGNATURES)
-    assert "apgd_sc_step.cu" in [s.name for s in kernels.sources()]
+    assert step_common.set_args(proj.float(), b) is None
+    assert step_common.set_args(blockwise(lorentz_cone(1.0, torch.float64), 5), b) is None
 
 
 def _plain_step(proj):
@@ -128,7 +122,7 @@ def _plain_step(proj):
     def step(sargs, Av, b, x, y, v, res, mv, it, done, verifying, L, beta, *, tol, gd,
              budget, restart):
         sc_step._check(b, (Av, b, x, y, v), (res, L, beta), (mv, it), (done, verifying))
-        assert sargs == sc_step.set_args(proj, b)
+        assert sargs == step_common.set_args(proj, b)
         s = apgd._SCState(x, y, res, mv, it, done, verifying, x.new_zeros((len(x), 0)))
         cfg = apgd.APGDSCConfig(tol=tol, gd=gd, max_matvecs=budget, restart=restart)
         new = select_lanes(~done, apgd._sc_body(s, LinearOperator(), b, proj, L, beta, cfg,
@@ -188,20 +182,6 @@ def test_fused_loop_on_the_plain_step_is_the_eager_solve(case, monkeypatch):
         assert (apgd.SC_STEPS_FUSED - fused, apgd.SC_STEPS_EAGER - eager) == (steps, 0)
     for name in ("x", "residual", "matvecs", "iterations", "converged"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
-
-
-def test_step_refuses_cpu_tensors():
-    B, n = 2, 6
-    z = torch.zeros((B, n))
-    lane = torch.zeros(B)
-    sargs = sc_step.set_args(blockwise(lorentz_cone(1.0), 3), z)
-    before = sc_step.LAUNCHES
-    with pytest.raises(ValueError, match="runs on cuda"):
-        sc_step.step(sargs, z.clone(), z, z.clone(), z.clone(), z.clone(), lane.clone(),
-                     torch.zeros(B, dtype=torch.int32), torch.zeros(B, dtype=torch.int32),
-                     torch.zeros(B, dtype=torch.bool), torch.zeros(B, dtype=torch.bool),
-                     lane + 1, lane, tol=1e-5, gd=1e-6, budget=10, restart=True)
-    assert sc_step.LAUNCHES == before
 
 
 # ---- on the card ---------------------------------------------------------------
@@ -266,7 +246,7 @@ def _both(s, Av, b, proj, L, beta, cfg):
     f = apgd._SCState(*(t.clone() for t in s))
     v = torch.where(f.verifying[:, None], f.x, f.y)
     before, Av0 = sc_step.LAUNCHES, Av.clone()
-    sc_step.step(sc_step.set_args(proj, b), Av, b, f.x, f.y, v, f.res, f.mv, f.it,
+    sc_step.step(step_common.set_args(proj, b), Av, b, f.x, f.y, v, f.res, f.mv, f.it,
                  f.done, f.verifying, L, beta, tol=cfg.tol, gd=cfg.gd,
                  budget=cfg.max_matvecs, restart=cfg.restart)
     torch.cuda.synchronize()
@@ -281,7 +261,7 @@ def _both(s, Av, b, proj, L, beta, cfg):
 def test_fused_step_matches_the_eager_body(cuda, name, dtype, restart):
     s, Av, b, proj, L, beta, budget = _step_case(name, dtype, cuda)
     cfg = apgd.APGDSCConfig(tol=1.0, max_matvecs=budget, restart=restart)
-    assert sc_step.set_args(proj, b) is not None
+    assert step_common.set_args(proj, b) is not None
     # The residuals do not depend on tol: put tol in the widest gap between
     # two of them near the median of the running lanes.
     res = _both(s, Av, b, proj, L, beta, cfg)[0].res[~s.done].sort().values
