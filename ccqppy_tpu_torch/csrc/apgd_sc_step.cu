@@ -54,16 +54,6 @@ namespace {
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 
-// torch.clamp(v, lo, hi) on the card: NaN propagates, else min(max(v, lo), hi).
-template <typename T>
-__device__ __forceinline__ T clip(T v, T lo, T hi) {
-  if (v != v) return v;
-  if (lo != lo) return lo;
-  if (hi != hi) return hi;
-  T m = v < lo ? lo : v;
-  return hi < m ? hi : m;
-}
-
 // The per-lane state, each pointer at lane 0, rows of n.
 template <typename T>
 struct Step {
@@ -183,9 +173,7 @@ struct BoxSet {
     const T g = add(r.av[k], r.b[k]);
     const T t = clip(sub(r.w[k], quot(g, r.L)), lo, hi);
     r.v[k] = t;
-    // pg_residual_vec: clamp(g, (q - ub) / gd, (q - lb) / gd).
-    const T q = r.ver ? r.x[k] : t;
-    const T ri = clip(g, mul(sub(q, hi), inv_gd), mul(sub(q, lo), inv_gd));
+    const T ri = box_pg_residual(r.ver ? r.x[k] : t, g, lo, hi, inv_gd);
     ss = add(ss, mul(ri, ri));
     if (!r.ver) rd = add(rd, mul(sub(r.y[k], t), sub(t, r.x[k])));
   }

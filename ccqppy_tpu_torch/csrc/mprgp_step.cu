@@ -86,17 +86,6 @@ __device__ __forceinline__ float narrow<float>(double a) { return __double2float
 template <>
 __device__ __forceinline__ double narrow<double>(double a) { return a; }
 
-// torch.clamp(v, min=0) and torch.clamp(v, max=0): NaN propagates.
-template <typename T>
-__device__ __forceinline__ T at_least0(T v) { return v != v ? v : (v < T(0) ? T(0) : v); }
-template <typename T>
-__device__ __forceinline__ T at_most0(T v) { return v != v ? v : (v > T(0) ? T(0) : v); }
-// torch.minimum / torch.maximum / amin: NaN propagates.
-template <typename T>
-__device__ __forceinline__ T least(T a, T b) { return a != a ? a : (b != b ? b : (b < a ? b : a)); }
-template <typename T>
-__device__ __forceinline__ T most(T a, T b) { return a != a ? a : (b != b ? b : (b > a ? b : a)); }
-
 // ---- Lorentz blocks ------------------------------------------------------------
 
 // free_chopped and pg_residual_vec of one block at (x, g), which share the

@@ -32,6 +32,14 @@ exact per-lane results.  Here the lanes are an explicit leading axis:
 
 The host reads one "any lane left?" flag per iteration.
 
+On the card, for a box (bounds ``(n,)`` or ``(B, n)``, n <= 2048) and no
+residual trace, an inner iteration is the GEMV and one launch of the fused
+step kernel (``ops/pcg_step.py``, ``csrc/pcg_step.cu``), in place on the
+state; every other set, the CPU, a trace, rr-PCG and the sharded operators
+run the eager body ``_body`` with its select (``_step_args`` says which).
+``PCG_STEPS_FUSED`` and ``PCG_STEPS_EAGER`` count the iterations on each.
+The verification sweep and a segment's start stay eager.
+
 With ``refresh_every > 0`` the solve is the JAX package's residual
 replacement (``_solve_rr``): inner segments of CG on ``op.matvec`` (for
 ``MixedPrecDense`` the bf16 sweep), each closed by one ``op.matvec_exact``
@@ -49,8 +57,15 @@ from ccqppy_tpu_torch.models.base import (SolverConfig, any_lane, default_x0,
                                           eps_of, init_trace, lanes,
                                           make_result, pg_residual,
                                           record_trace, select_lanes)
-from ccqppy_tpu_torch.ops.linop import as_operator
+from ccqppy_tpu_torch.ops import pcg_step
+from ccqppy_tpu_torch.ops.linop import LinearOperator, as_operator
 from ccqppy_tpu_torch.ops.projections import identity
+from ccqppy_tpu_torch.ops.step_common import fused_set_args
+
+#: Iterations of PCG's inner loops (plain and rr-PCG) on the fused step
+#: kernel and on the eager body, in this process.
+PCG_STEPS_FUSED = 0
+PCG_STEPS_EAGER = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,31 +93,6 @@ class PCGConfig(SolverConfig):
     inner_margin: float = 0.3
     refresh_restart: bool = True
     segment_drop: float = 0.0
-
-
-def _cg_step(op, proj, prec, tiny, s):
-    """One projected CG step from ``s`` (fields x, g, m, p, rr) with one
-    ``op.matvec`` sweep: returns the new (x, g, m, r, p, rr)."""
-    Ap = op.matvec(s.p)
-    pAp = op.dot(s.p, s.m * Ap)
-    alpha_cg = s.rr / (pAp + tiny)
-    # max_feasible_step is defined for steps x - a*q; we move along +p.
-    alpha_f = op.reduce_min(proj.max_feasible_step(s.x, -s.p))
-    alpha = torch.minimum(alpha_cg, torch.clamp(alpha_f, min=0.0))
-    # project() only clears fp dust: the step is feasible by construction.
-    x = proj.project(s.x + lanes(alpha) * s.p)
-    g = s.g + lanes(alpha) * Ap
-    # Snap newly-binding coordinates exactly onto their bound (see
-    # Projection.snap_binding).
-    x = proj.snap_binding(x, g)
-    m = proj.binding_mask(x, g)
-    changed = (m != s.m).any(dim=-1)
-    r = -m * g
-    z = m * prec(r)
-    rr = op.dot(r, z)
-    restart = changed | (alpha_f < alpha_cg)
-    beta = torch.where(restart, 0.0, rr / (s.rr + tiny))
-    return x, g, m, r, z + lanes(beta) * s.p, rr
 
 
 class _State(NamedTuple):
@@ -144,6 +134,7 @@ def solve(A, b, x0=None, proj=None, config: PCGConfig = PCGConfig()):
     tiny = eps_of(b)
     tol, budget = config.tol, config.max_matvecs
 
+    dinv = None
     if config.precond == "jacobi":
         dinv = 1.0 / torch.clamp(op.diagonal(), min=tiny)
         prec = lambda r: dinv * r  # noqa: E731
@@ -152,16 +143,8 @@ def solve(A, b, x0=None, proj=None, config: PCGConfig = PCGConfig()):
 
     if config.refresh_every > 0:
         return _solve_rr(op, b, x0, proj, config, prec, tiny)
-
-    def body(s):
-        x, g, m, r, p, rr = _cg_step(op, proj, prec, tiny, s)
-        mv = s.mv + 1
-        res = pg_residual(proj, x, g, config.gd, op)
-        # rr == 0 exactly: a fully frozen mask, no direction left to move in.
-        # ``mv + 1``: one matvec of budget is reserved for the verification.
-        done = (res < tol) | (mv + 1 >= budget) | (rr == 0)
-        return _State(x, g, m, r, p, rr, res, mv, s.it + 1, done,
-                      record_trace(s.trace, s.it, res))
+    sargs = _step_args(op, b, proj, config, dinv)
+    body = lambda s, Ap: _body(s, op, proj, prec, tiny, config, Ap)  # noqa: E731
 
     def inner_init(o):
         x = proj.snap_binding(o.x, o.g)
@@ -190,11 +173,10 @@ def solve(A, b, x0=None, proj=None, config: PCGConfig = PCGConfig()):
         if not any_lane(outer):
             break
         s = inner_init(o)
-        while True:
-            active = outer & ~s.done
-            if not any_lane(active):
-                break
-            s = select_lanes(active, body(s), s)
+        if sargs is None:
+            s = _inner_eager(s, outer, body)
+        else:
+            s = _inner_fused(s, outer, op, b, sargs, dinv, config, tiny, body)
         # Verification sweep for every outer-active lane.
         g_t = op.matvec_exact(s.x) + b
         mv = s.mv + 1
@@ -238,18 +220,89 @@ class _RROuter(NamedTuple):
     trace: torch.Tensor
 
 
+def _body(s, op, proj, prec, tiny, config, Ap=None):
+    """One eager iteration of plain PCG's inner loop on every lane (the
+    caller keeps the lanes that do not run): the plain version of
+    ``ops.pcg_step``.  ``Ap`` is the sweep ``A p`` when the caller has
+    taken it."""
+    x, g, m, r, p, rr = pcg_step.cg_step(op, proj, prec, tiny, s, Ap)
+    mv = s.mv + 1
+    res = pg_residual(proj, x, g, config.gd, op)
+    # rr == 0 exactly: a fully frozen mask, no direction left to move in.
+    # ``mv + 1``: one matvec of budget is reserved for the verification.
+    done = (res < config.tol) | (mv + 1 >= config.max_matvecs) | (rr == 0)
+    return _State(x, g, m, r, p, rr, res, mv, s.it + 1, done,
+                  record_trace(s.trace, s.it, res))
+
+
+def _step_args(op, b, proj, config, dinv):
+    """The box's ``SetArgs`` when plain PCG's inner loop may run the fused
+    step, else None: ``step_common.fused_set_args`` gives a box; plain PCG
+    (``refresh_every == 0``); the operator's ``reduce_min`` is
+    ``LinearOperator``'s (a sharded operator's all-reduce keeps the eager
+    body); a lane of at most ``pcg_step.MAX_N`` coordinates; and Jacobi's
+    ``dinv``, if any, contiguous in b's dtype on b's device, ``(n,)`` or
+    ``(B, n)``."""
+    sargs = fused_set_args(op, b, proj, config.trace_len)
+    if sargs is None or sargs.kind != "box" or config.refresh_every > 0:
+        return None
+    if type(op).reduce_min is not LinearOperator.reduce_min or b.shape[-1] > pcg_step.MAX_N:
+        return None
+    if dinv is not None and not (dinv.dtype == b.dtype and dinv.device == b.device
+                                 and dinv.is_contiguous()
+                                 and dinv.shape in (b.shape[-1:], b.shape)):
+        return None
+    return sargs
+
+
+def _inner_eager(s, outer, body, Ap=None):
+    """Plain PCG's inner loop on the eager ``body(s, Ap)`` with the select of
+    the running lanes; ``Ap``, when given, is the first iteration's sweep."""
+    global PCG_STEPS_EAGER
+    while True:
+        active = outer & ~s.done
+        if not any_lane(active):
+            return s
+        s = select_lanes(active, body(s, Ap), s)
+        Ap = None
+        PCG_STEPS_EAGER += 1
+
+
+def _inner_fused(s, outer, op, b, sargs, dinv, config, tiny, body):
+    """Plain PCG's inner loop with the fused step: the GEMV on p, the step
+    kernel and the "any lane running?" test of the ``active`` flags it
+    keeps, three kernels an iteration, in place on the state.
+    ``inner_init`` shares g, res, mv and it with the outer state, which
+    reads them after the loop: they are copied first.  An ``A p`` in another
+    dtype than b goes to the eager loop, with the state as it stands."""
+    global PCG_STEPS_FUSED
+    s = s._replace(**{f: getattr(s, f).clone(memory_format=torch.contiguous_format)
+                      for f in ("g", "res", "mv", "it")},
+                   **{f: getattr(s, f).contiguous() for f in ("x", "m", "p", "rr", "done")})
+    active = outer & ~s.done          # the step clears a lane it finishes
+    while any_lane(active):
+        Ap = op.matvec(s.p)
+        if Ap.dtype != b.dtype:
+            return _inner_eager(s, outer, body, Ap)
+        pcg_step.step(sargs, Ap.contiguous(), b, s, active, dinv, tol=config.tol, gd=config.gd,
+                      budget=config.max_matvecs, tiny=tiny)
+        PCG_STEPS_FUSED += 1
+    return s
+
+
 def _solve_rr(op, b, x0, proj, config, prec, tiny):
     """Residual-replacement PCG (``PCGConfig.refresh_every``): an outer loop
     of exact refreshes around inner segments of cheap CG iterations.  Every
     inner step is one cheap sweep over all lanes, every refresh one exact
     sweep; both count as matvecs, and a lane's counters move only while it
     is active.  The trace records the true residual of each refresh."""
+    global PCG_STEPS_EAGER
     K = int(config.refresh_every)
     tol, budget = config.tol, config.max_matvecs
     inner_tol = tol * config.inner_margin
 
     def inner_body(t):
-        x, g, m, r, p, rr = _cg_step(op, proj, prec, tiny, t)  # the cheap sweep
+        x, g, m, r, p, rr = pcg_step.cg_step(op, proj, prec, tiny, t)  # the cheap sweep
         # The estimate on the carried gradient only ends the segment.  The
         # ``+ 2`` keeps room for the segment's exact refresh in the budget.
         res_est = pg_residual(proj, x, g, config.gd, op)
@@ -291,6 +344,7 @@ def _solve_rr(op, b, x0, proj, config, prec, tiny):
             if not any_lane(active):
                 break
             t = select_lanes(active, inner_body(t), t)
+            PCG_STEPS_EAGER += 1
         # Exact refresh: gradient, mask, true residual.
         g = op.matvec_exact(t.x) + b
         mv = t.mv + 1

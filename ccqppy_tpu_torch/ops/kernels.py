@@ -45,6 +45,10 @@ _STEP_TAIL = (_I64, _I64, _F64, _I64, _I64, _P)
 # mode, threads, cluster, stream).
 _MPRGP = ((_P,) * 17 + (_P, _I64, _I64, _I64, _I64, _F64, _I64, _F64, _F64, _I64, _I64, _I64,
                         _P))
+# pcg_step_box_*: the state's eleven pointers (A p, x, g, m, p, rr, res, mv,
+# it, done, active), Jacobi's 1 / diag A and its stride, the bounds and
+# their strides, gd, tiny, then (batch, n, tol, budget, threads, stream).
+_PCG = (_P,) * 11 + (_P, _I64, _P, _I64, _P, _I64, _F64, _F64, _I64, _I64, _F64, _I64, _I64, _P)
 SIGNATURES = {
     "batched_gemv_f32": (_P, _P, _P, _I64, _I64, _P),
     "batched_gemv_bf16": (_P, _P, _P, _I64, _I64, _P),
@@ -58,6 +62,8 @@ SIGNATURES = {
     "apgd_sc_step_box_f64": (*_STEP, _P, _I64, _P, _I64, _F64, *_STEP_TAIL),
     "mprgp_step_lorentz_f32": _MPRGP,
     "mprgp_step_lorentz_f64": _MPRGP,
+    "pcg_step_box_f32": _PCG,
+    "pcg_step_box_f64": _PCG,
 }
 
 

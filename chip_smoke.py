@@ -8,7 +8,11 @@ right-hand sides perturbed by 1e-3 N(0, 1) per call.  Three box modes:
 
 * iterative (B=2048): Jacobi warm start ``clip(-b / diag A, -1, 1)``, then
   verified PCG with fused straggler compaction (phase 1 at 17 matvecs, a
-  256-lane bucket), on the dense stack through the GEMV kernel;
+  256-lane bucket), on the dense stack through the GEMV kernel, every
+  inner iteration the GEMV and the fused step kernel
+  ``csrc/pcg_step.cu``; then one step is checked against its plain
+  version from one state with lanes done, outer-inactive and running, and
+  both are timed alone at (2048, 1000) and at phase 2's 111 lanes;
 * packed (the same B=2048 ensemble): the same solve on
   ``SymmetricPackedDense.from_dense(As, tile=256)``, whose matvec streams
   only the upper tiles through the symv kernel;
@@ -16,8 +20,9 @@ right-hand sides perturbed by 1e-3 N(0, 1) per call.  Three box modes:
   ``SymmetricPackedDense.from_dense(As[:1], tile=256)``, whose matvec at
   B=1 is the single-problem wrapper ``symv_packed``: PCG from the Jacobi
   start, uncompacted.  One QP answered alone, the latency case of a packed
-  ensemble's users; its wall is host-bound (~100 small kernels an
-  iteration around a few-microsecond symv), not a kernel measurement;
+  ensemble's users; its wall is host-bound (the fused PCG step, the flag
+  read and the segments' eager starts around a few-microsecond symv), not
+  a kernel measurement;
 * direct serving (B=1024): a one-time batched Cholesky inverse, then per
   call the projected inverse apply, a verification sweep and a compacted
   PCG polish (phase 1 at 3 matvecs, a 64-lane bucket).
@@ -199,7 +204,7 @@ from ccqppy_tpu_torch.models.direct import solve_direct_batched, spd_inverse_bat
 from ccqppy_tpu_torch.models.mprgp import MPRGPBBConfig
 from ccqppy_tpu_torch.models.pcg import PCGConfig
 from ccqppy_tpu_torch.models.spg import SPGConfig
-from ccqppy_tpu_torch.ops import (collectives, gemv, kernels, mprgp_step, sc_step,
+from ccqppy_tpu_torch.ops import (collectives, gemv, kernels, mprgp_step, pcg_step, sc_step,
                                   step_common, symv)
 from ccqppy_tpu_torch.ops.linop import (BlockSparseOperator, CastDense, DenseOperator,
                                         LinearOperator, MixedPrecDense, ShardedDenseOperator,
@@ -229,6 +234,7 @@ NOISE = 1e-3
 B_ITER = 2048
 PHASE1 = 17        # p50 sweep count + the verification sweep
 BUCKET = 256
+PHASE2_LANES = 111  # the lanes phase 2 re-solves, 5.41% of 2048 (PERF.md section 5)
 
 TILE_PACKED = 256  # n = 1000 padded to 1024: 10 tiles, 0.655x the dense bytes
 
@@ -360,6 +366,7 @@ def zero_counts():
     gemv.LAUNCHES = gemv.LAUNCHES_BF16 = gemv.LAUNCHES_F64 = gemv.LAUNCHES_F32_F64 = 0
     sc_step.LAUNCHES = apgd.SC_STEPS_FUSED = apgd.SC_STEPS_EAGER = 0
     mprgp_step.LAUNCHES = mprgp.MPRGP_ITERS = 0
+    pcg_step.LAUNCHES = pcg.PCG_STEPS_FUSED = pcg.PCG_STEPS_EAGER = 0
     symv.LAUNCHES.update(dict.fromkeys(symv.LAUNCHES, 0))
     COLLECTIVES.update(dict.fromkeys(COLLECTIVES, 0))
 
@@ -529,6 +536,120 @@ def check_sc_step(As, bs, proj):
     out.update(ms=device_ms(step), plain_ms=device_ms(plain))
     out["bound_ms"], out["bound_by"] = bound(nbytes, 40 * bs.numel())
     return out
+
+
+def require_pcg_fused(name):
+    """Every PCG iteration of the mode just run took the fused step."""
+    require(pcg.PCG_STEPS_EAGER == 0 and pcg_step.LAUNCHES == pcg.PCG_STEPS_FUSED > 0,
+            f"{name}: {pcg.PCG_STEPS_FUSED} fused and {pcg.PCG_STEPS_EAGER} eager PCG "
+            f"iterations, {pcg_step.LAUNCHES} step launches")
+
+
+def check_pcg_step(As, bs, proj, phase2_lanes):
+    """The fused PCG step on the card at the iterative mode's width, against
+    its plain version (``pcg_step.plain_step``: the eager body with its
+    select), then timed.
+
+    Check: from one inner state at the Jacobi start (x, g = A x + b, the
+    binding mask, p the free set's steepest descent, scaled by 1-1000 a
+    lane so that some steps stop at a bound and some short of every bound),
+    one step and one plain step on the same ``A p``.  Lanes are done (every
+    8th), outer-inactive (one in 8) or running, one in 16 a matvec short of
+    the budget; tol lies in the widest gap between two neighbouring
+    residuals of the middle half of the running lanes.  Required: m, mv,
+    it and done equal, every field of a lane that does not run bitwise
+    kept, x, g and p within 16 ulps of the larger state's largest entry
+    (the lane's two sums run in another order), rr and res within 1e-5
+    relative.
+
+    Timing, device-only, at (B, n) and at the phase-2 bucket's
+    ``phase2_lanes``: a step on every lane (``active`` all set; the kernel
+    reads no other flag), against its bytes (A p, x, g, m, p read, x, g, m,
+    p written, the lane scalars, the shared bounds once) and against the
+    plain step, which it replaces."""
+    B, n = bs.shape
+    dev = bs.device
+    sargs = step_common.set_args(proj, bs)
+    require(sargs is not None and sargs.kind == "box",
+            f"step_common.set_args refused {type(proj).__name__}")
+    tiny = eps_of(bs)
+    x = jacobi_x0(As.diagonal(dim1=-2, dim2=-1), bs)
+    g = gemv.batched_gemv(As, x) + bs
+    m = proj.binding_mask(x, g)
+    r = -m * g
+    lane = torch.arange(B, device=dev)
+    scale = 10.0 ** (3.0 * ((lane * 0.618034) % 1.0))[:, None]
+    p = scale * (m * r)
+    budget = 40
+    s = pcg._State(x, g, m, r, p, (r * m * r).sum(-1), torch.zeros(B, device=dev),
+                   torch.where(lane % 16 == 5, budget - 2, lane % 5 + 3).to(torch.int32),
+                   (lane % 7).to(torch.int32), lane % 8 == 0, torch.zeros((B, 0), device=dev))
+    outer = lane % 8 != 1
+    Ap = gemv.batched_gemv(As, p)
+    kw = dict(gd=1e-6, budget=budget, tiny=tiny)
+
+    def plain(tol):
+        f = pcg._State(*(t.clone() for t in s))
+        pcg_step.plain_step(sargs, Ap, bs, f, outer & ~s.done, None, tol=tol, **kw)
+        return f
+
+    res = plain(1.0).res[outer & ~s.done].sort().values
+    lo = len(res) // 4
+    k = max(range(lo, 3 * lo), key=lambda i: float(res[i + 1] / res[i]))
+    gap = float(res[k + 1] / res[k])
+    require(gap > 1 + 1e-5, f"pcg step check: no gap between residuals ({gap})")
+    tol = float(torch.sqrt(res[k] * res[k + 1]))
+    ref = plain(tol)
+    f = pcg._State(*(t.clone() for t in s))
+    pcg_step.step(sargs, Ap, bs, f, outer & ~s.done, None, tol=tol, **kw)
+    kept = ~(outer & ~s.done)
+    for name, got, old in zip(pcg._State._fields[:-1], f, s):
+        require(torch.equal(got[kept], old[kept]), f"pcg step: a kept lane's {name} changed")
+    for name in ("m", "mv", "it", "done"):
+        require(torch.equal(getattr(f, name), getattr(ref, name)),
+                f"pcg step: {name} differs from the plain step on "
+                f"{int((getattr(f, name) != getattr(ref, name)).any(-1).sum())} lanes")
+    eps = torch.finfo(bs.dtype).eps
+    ulps = {}
+    for name in ("x", "g", "p"):
+        got, want, old = getattr(f, name), getattr(ref, name), getattr(s, name)
+        big = max(float(want.abs().max()), float(old.abs().max()))
+        ulps[name] = float((got - want).abs().max()) / (eps * big)
+        require(ulps[name] <= 16, f"pcg step: {name} off the plain step by {ulps[name]} ulps")
+    run = (outer & ~s.done & (ref.rr != 0))
+    rel = {name: float(((getattr(f, name) - getattr(ref, name)).abs()
+                        / getattr(ref, name).abs())[run].max()) for name in ("rr", "res")}
+    require(max(rel.values()) <= 1e-5, f"pcg step: rr, res off the plain step by {rel}")
+    out = {"B": B, "n": n, "check": {"tol": tol, "gap": gap, "ulps": ulps, "rel": rel,
+                                     "mask_changed": int((f.m != s.m).any(-1)[run].sum()),
+                                     "done": int((ref.done & ~s.done & outer).sum())}}
+
+    for lanes in (B, phase2_lanes):
+        t = pcg._State(*(v[:lanes].clone() for v in s))
+        t = t._replace(mv=torch.zeros_like(t.mv))
+        every = torch.ones(lanes, dtype=torch.bool, device=dev)
+        b_, ap_ = bs[:lanes], Ap[:lanes]
+        kw_t = dict(tol=0.0, gd=1e-6, budget=1 << 30, tiny=tiny)
+        step = lambda: pcg_step.step(sargs, ap_, b_, t, every, None, **kw_t)  # noqa: E731
+        plain_t = lambda: pcg_step.plain_step(sargs, ap_, b_, t, every, None, **kw_t)  # noqa: E731
+        # A lane's scalars: rr, res, mv, it read and written, active read,
+        # done written (34 bytes); the bounds (n,) once.  About 40
+        # operations an element: the two dots, the step, clip, snap and
+        # mask, the residual and the new direction.
+        nbytes = 9 * lanes * n * bs.element_size() + lanes * 34 + 2 * n * bs.element_size()
+        key = "" if lanes == B else f"_b{lanes}"
+        out[f"ms{key}"], out[f"plain_ms{key}"] = device_ms(step), device_ms(plain_t)
+        out[f"bound_ms{key}"], out[f"bound_by{key}"] = bound(nbytes, 40 * lanes * n)
+    return out
+
+
+def print_pcg_step(out, fused, phase2_lanes):
+    print(f"pcg step box f32 (B={out['B']}, n={out['n']}): kernel {out['ms']:.4f} ms, bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']}), plain step {out['plain_ms']:.4f} ms; "
+          f"at B={phase2_lanes}: kernel {out[f'ms_b{phase2_lanes}']:.4f} ms, bound "
+          f"{out[f'bound_ms_b{phase2_lanes}']:.4f} ms, plain step "
+          f"{out[f'plain_ms_b{phase2_lanes}']:.4f} ms; checked against the plain step "
+          f"{out['check']}; {fused} fused iterations in the iterative mode")
 
 
 class SweptOperator(LinearOperator):
@@ -1695,7 +1816,12 @@ def main():
                           lambda: gemv.LAUNCHES)
     gemv_launches = gemv.LAUNCHES
     require(gemv_launches > 0, "the iterative mode launched no GEMV kernel")
+    require_pcg_fused("iterative")
+    pcg_iter_fused = pcg.PCG_STEPS_FUSED
     r_iter = r_dense   # its warm-up call on the unperturbed b, audited in (p)
+    pcg_out = check_pcg_step(As, bs, proj, PHASE2_LANES)
+    print_pcg_step(pcg_out, pcg_iter_fused, PHASE2_LANES)
+    pcg_out["launches"] = pcg_iter_fused
     del diag
 
     # ---- packed mode: the same ensemble through the symv kernel -------------
@@ -2336,7 +2462,9 @@ def main():
          "source": "ccqppy_tpu_torch/csrc/apgd_sc_step.cu", "replaces": None, **sc_box},
         {"name": "mprgp_step", "route": "cuda",
          "source": "ccqppy_tpu_torch/csrc/mprgp_step.cu", "replaces": None, **mp_999,
-         "n9999": mp_9999}]}))
+         "n9999": mp_9999},
+        {"name": "pcg_step", "route": "cuda",
+         "source": "ccqppy_tpu_torch/csrc/pcg_step.cu", "replaces": None, **pcg_out}]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the start of main")
     print(smi)
     print(json.dumps({"ok": True, "device": {
