@@ -10,8 +10,8 @@ every ``SolveResult`` field carries a leading lane axis, and
 * Budget semantics: ``converged := matvecs < max_matvecs`` at exit.
 * Telemetry: ``span`` marks a stretch of host time for ``torch.profiler``
   and costs one check of the profiler's state when none records;
-  ``any_lane`` and ``lane_indices`` are the solvers' only reads of a
-  device value on the host, each counted in ``HOST_SYNCS``.
+  ``any_lane``, ``lane_indices`` and ``host_flag`` are the solvers' only
+  reads of a device value on the host, each counted in ``HOST_SYNCS``.
 """
 from __future__ import annotations
 
@@ -20,8 +20,9 @@ import dataclasses
 
 import torch
 
-#: Host reads of a device value in this process (``any_lane`` and
-#: ``lane_indices``): on CUDA each waits for the stream to drain.
+#: Host reads of a device value in this process (``any_lane``,
+#: ``lane_indices`` and ``host_flag``): on CUDA each waits for the stream
+#: to drain.
 HOST_SYNCS = 0
 
 _NO_SPAN = contextlib.nullcontext()
@@ -141,6 +142,24 @@ def any_lane(mask):
     global HOST_SYNCS
     HOST_SYNCS += 1
     return bool(mask.any())
+
+
+def host_flag(values, i, device):
+    """``values[i]`` of an int64 array over host memory that ``device``
+    writes (a loop's flag, ``ops.loop_flag``) after the host has set it to
+    -1, read on the host once written; counted in ``HOST_SYNCS``.  The host
+    waits by reading the memory, with no call into CUDA: at B = 1 a stream's
+    synchronisation and a copy cost a tenth of a pass.  Where the device's
+    current stream has finished and the flag is still -1, the device never
+    wrote it: ``RuntimeError``."""
+    global HOST_SYNCS
+    HOST_SYNCS += 1
+    spins = 0
+    while values[i] < 0:
+        spins += 1
+        if spins % 1024 == 0 and torch.cuda.current_stream(device).query() and values[i] < 0:
+            raise RuntimeError("the device finished without writing the loop's flag")
+    return int(values[i])
 
 
 def lane_indices(mask):

@@ -63,35 +63,59 @@ included, runs the eager body, which is the kernel's plain version
 ``ops.step_common.fused_set_args`` that ``apgd.solve_sc`` shares, and
 MPRGP's own clauses).
 
+With the step kernel, where the sweeps are ``DenseOperator``'s GEMV of its
+stack (``_dense_sweeps``), a solve shape that repeats runs from CUDA
+graphs kept across calls (``_cached_solve``, one solve shape a device):
+the start, a pass (the sweep, the step and the loop's flag kernel,
+``ops.loop_flag``), the audit and a resume, each a graph, captured after
+a call of the shape has run them eagerly.  A call copies b, x0 and the
+set's ``mu`` in, replays, and reads a flag on the host after each graph,
+as the eager loop does; nothing else of the host's is left a pass.  The
+same kernels run on the same values, so the answers are the eager loop's
+bitwise.  A shape met once while another's graphs are kept (phase 2 of a
+compacted call, on a new stack each call) runs ``_stepped_loop``, which
+captures one graph of a pass for the call (``_cached_loop`` decides).
+
 Telemetry: ``MPRGP_ITERS`` counts the loop's iterations on the host (a
-pass of the body, every form), ``MPRGP_AUDITS`` the audit sweeps, and the
-span ``ccqppy.mprgp.iter`` marks an iteration's host work under a
-profiler; none of them reads the device.
+pass of the body, every form), ``MPRGP_AUDITS`` the audit sweeps (a replay
+of a captured one counts when it runs), ``MPRGP_CACHED_LOOPS`` the loops
+run from cached graphs and ``MPRGP_GRAPH_CAPTURES`` their captures, and
+the span ``ccqppy.mprgp.iter`` marks an iteration's host work under a
+profiler (on the cached graphs a pass's replay); none of them reads the
+device.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
 import functools
+import gc
+import weakref
 from typing import NamedTuple
 
 import torch
 
 from ccqppy_tpu_torch.models.base import (SolverConfig, any_lane, default_x0,
-                                          eps_of, init_trace, lanes,
+                                          eps_of, host_flag, init_trace, lanes,
                                           make_result, pg_residual,
                                           record_trace, select_lanes, span,
                                           where_lanes)
-from ccqppy_tpu_torch.ops import kernels, mprgp_step
+from ccqppy_tpu_torch.ops import kernels, loop_flag, mprgp_step
 from ccqppy_tpu_torch.ops.linop import DenseOperator, LinearOperator, as_operator
 from ccqppy_tpu_torch.ops.projections import identity
-from ccqppy_tpu_torch.ops.step_common import fused_set_args
+from ccqppy_tpu_torch.ops.step_common import fused_set_args, set_args
 
 #: Passes of either form's loop body in this process, counted on the host.
 MPRGP_ITERS = 0
 #: f64 audit sweeps (``LinearOperator.matvec_f64``) in this process: one a
 #: batch each time they run, every lane swept.
 MPRGP_AUDITS = 0
+#: Loops run from cached graphs in this process (``_cached_solve``): a call's
+#: first, and one more each time its audit resumes a lane.
+MPRGP_CACHED_LOOPS = 0
+#: Captures of those graphs in this process: misses of the cache where no
+#: live loop is kept or the shape repeats (``_cached_loop``).
+MPRGP_GRAPH_CAPTURES = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,10 +180,19 @@ def _audit(op, proj64, b, x, gd):
     """The f64 audit of every lane's x: the gradient ``A x + b`` with f64
     sums from the operator's own entries, and its Eq. 25 residual on the
     f64 set ``proj64``, both f64."""
-    global MPRGP_AUDITS
-    MPRGP_AUDITS += 1
+    kernels.count(_count_audit)
     g = op.matvec_f64(x) + b.double()
     return g, pg_residual(proj64, x.double(), g, gd, op)
+
+
+def _count_audit():
+    global MPRGP_AUDITS
+    MPRGP_AUDITS += 1
+
+
+def _count_pass():
+    global MPRGP_ITERS
+    MPRGP_ITERS += 1
 
 
 def _iterate(step, active, s):
@@ -271,7 +304,9 @@ def _stepped_loop(op, b, s, sargs, config):
     free part of the new ``(x, g)`` and its proportioning test, which the
     next pass reads.  At a loop's start the direction of every running lane
     is the free part of (x, g) (the first state's, a resumed lane's): the
-    first launch writes it into p, and psi is its copy."""
+    first launch writes it into p, and psi is its copy.  Taken where no
+    cached graphs serve the solve (``_cached_loop``): its graph is the
+    call's own."""
     gamma2, tiny = config.gamma**2, eps_of(b)
     s = _private(s)
     v = torch.empty(s.x.shape, dtype=torch.float64, device=s.x.device)
@@ -285,6 +320,265 @@ def _stepped_loop(op, b, s, sargs, config):
         return s
 
     return _fused_loop(step, s, graphed=True)
+
+
+def _dense_sweeps(op):
+    """Whether the operator's sweeps are the GEMV of its own stack ``op.A``
+    (``DenseOperator``'s matvecs), so that cached graphs read nothing else
+    of it."""
+    return (type(op).matvec is DenseOperator.matvec
+            and type(op).matvec_exact is LinearOperator.matvec_exact
+            and type(op).matvec_f64 is LinearOperator.matvec_f64)
+
+
+def graph_key(op, b, x0, sargs, config):
+    """The key of a solve's cached graphs (``_cached_solve``): everything they
+    read by pointer or bake in.  b's device, shape and dtype; the operator's
+    type and stack (identity, pointer, version); the set's kind, block size
+    and the layout of its ``mu`` (one, or one a block); the config (tol,
+    budget, gamma, gd and the rest); and whether x0 was given.  The values
+    of b, x0 and mu are copied in at each call."""
+    A = op.A
+    return (b.device, tuple(b.shape), b.dtype, type(op), id(A), A.data_ptr(), A._version,
+            tuple(A.shape), A.stride(), A.dtype, sargs.kind, tuple(sargs.p0.shape), sargs.s0,
+            sargs.d, config, x0 is None)
+
+
+#: Per device: the cached graphs of one solve shape (``_CachedLoop``).
+_LOOPS = {}
+#: Per device: the keys of the solves that missed the cache and did not
+#: capture since its last hit or capture, the last ``_MISSES_KEPT`` of them,
+#: each with a weak reference to its stack.
+_MISSED = {}
+_MISSES_KEPT = 4
+
+
+def _cached_loop(op, b, x0, proj, sargs, config):
+    """The loop of graphs that serves a solve that ``_step_args`` hands the
+    step kernel (``_cached_solve``), or None where the solve should run
+    ``_stepped_loop``.  The kept loop where the key is its (a hit); a new
+    one, to capture, where no live loop is kept or where the key repeats a
+    miss since the last hit, on the same stack; else None, and the miss is
+    remembered.  So a shape met once (phase 2 of a compacted call, on a
+    stack made for the call) neither captures nor evicts the kept loop,
+    and a shape that alternates with the kept one does not capture."""
+    if not _dense_sweeps(op):
+        return None
+    key, dev = graph_key(op, b, x0, sargs, config), b.device
+    loop, missed = _LOOPS.get(dev), _MISSED.setdefault(dev, [])
+    if loop is not None and loop.hit(key):
+        missed.clear()
+        return loop
+    if (loop is None or loop.A_ref() is None
+            or any(k == key and A() is op.A for k, A in missed)):
+        missed.clear()
+        return _CachedLoop(key, op, b, x0, proj, config)
+    missed[:] = missed[1 - _MISSES_KEPT:] + [(key, weakref.ref(op.A))]
+    return None
+
+
+def _capture(run, device):
+    """``run()`` captured as one CUDA graph in the device's pool of the loop's
+    graphs.  Returns its replay, which launches the graph and counts the
+    launches it records (``kernels.graph_capture``)."""
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    pool, _ = _GRAPH_POOLS.get(device, (None, None))
+    pool = torch.cuda.graph_pool_handle() if pool is None else pool
+    with torch.cuda.stream(stream), kernels.graph_capture() as replayed:
+        # Only this thread's calls are checked: a profiler's threads may
+        # touch the card while a traced call captures.
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            run()
+        finally:
+            # Closed also on an error: a capture left open fails every later
+            # call of this thread.
+            graph.capture_end()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    _GRAPH_POOLS.setdefault(device, (pool, None))
+
+    def replay():
+        graph.replay()
+        replayed()
+    return replay
+
+
+class _CachedLoop:
+    """The fused loop with the step kernel for one solve shape, in four pieces
+    that run on static buffers, in place: ``first`` (the start from b and
+    x0, as ``_solve_fused`` starts, then the first operand), ``pass`` (the
+    sweep of the operand and the step), ``audit`` (``_audit_fused``'s f64
+    audit of the claims) and ``resume`` (the resumed lanes' gradient and
+    direction, then the operand), as ``_stepped_loop`` and ``_audit_fused``
+    run them: the same kernels on the same values.  ``first``, ``pass`` and
+    ``resume`` end with the loop's flag (``ops.loop_flag``: "does a lane
+    run?") and ``audit`` with "did the audit resume a lane?", each in the
+    flags (two int64, in pinned host memory on a card), which the host
+    reads.  A new loop runs the pieces eagerly, then captures each as a
+    CUDA graph that later calls replay.  The buffers: copies of b and
+    x0, the state, the step's psi, v and prop, the lanes that passed an
+    audit, the audited gradient and the resumed lanes, and the loop's own
+    copy of the set (its ``mu``), in b's dtype and in f64 for the audit.
+    The operator's stack is read where it lies."""
+
+    def __init__(self, key, op, b, x0, proj, config):
+        B, n = b.shape
+        dev, dt = b.device, b.dtype
+        self.key, self.config = key, config
+        self.op = None
+        self.A_ref = weakref.ref(op.A)
+        self.b = torch.empty_like(b, memory_format=torch.contiguous_format)
+        self.x0 = None if x0 is None else torch.empty_like(self.b)
+        vec, lane = (lambda dtype=dt: torch.empty((B, n), dtype=dtype, device=dev),
+                     lambda dtype=dt: torch.empty(B, dtype=dtype, device=dev))
+        self.s = _FusedState(x=vec(), g=vec(), p=vec(), x_prev=vec(), g_prev=vec(),
+                             alpha_bb=lane(), pending=lane(torch.bool),
+                             verifying=lane(torch.bool), res=lane(), mv=lane(torch.int32),
+                             it=lane(torch.int32), done=lane(torch.bool),
+                             trace=torch.empty((B, 0), dtype=dt, device=dev))
+        self.psi, self.v, self.g_audit = vec(), vec(torch.float64), vec()
+        self.prop, self.passed, self.resumed = lane(torch.bool), lane(torch.bool), \
+            lane(torch.bool)
+        # The two flags the host reads: in pinned host memory, which the flag
+        # kernel writes through its mapped address, on a card; the host
+        # writes and reads them through an array over the same memory.
+        self.flags = torch.full((2,), -1, dtype=torch.int64, pin_memory=dev.type == "cuda")
+        self.running, self.any_resumed = self.flags[0], self.flags[1]
+        self.flag_values = self.flags.numpy()
+        self.proj = copy.deepcopy(proj)
+        self.sargs = set_args(self.proj, b)
+        self.proj64 = _f64_set(proj) if _audited(b) else None
+        self.graphs = None
+
+    def hit(self, key):
+        """Whether these graphs serve a solve of ``key``: the same key, and the
+        operator's stack still the one captured (alive, so its id is its)."""
+        return self.key == key and self.A_ref() is not None
+
+    def load(self, op, b, x0, sargs):
+        """A call's b, x0 and set (``sargs``' mu) into the loop's copies; its
+        operator is held for the call (the graphs read its stack by pointer:
+        it is not kept alive between calls)."""
+        self.op = op
+        self.b.copy_(b)
+        if x0 is not None:
+            self.x0.copy_(torch.as_tensor(x0))
+        self.sargs.p0.copy_(sargs.p0)
+        if self.proj64 is not None:
+            self.proj64.child.mu.copy_(sargs.p0)
+
+    def pieces(self):
+        """The pieces as functions that run them eagerly; without an audit (b
+        in f64) ``first`` and ``pass`` alone.  Made at each call: kept, they
+        would hold the loop in a reference cycle, which the garbage collector
+        may free, and its graphs with it, while another graph captures."""
+        first = {"first": self._first, "pass": self._pass}
+        return first if self.proj64 is None else {**first, "audit": self._audit,
+                                                  "resume": self._resume}
+
+    def _first(self):
+        x_init = self.proj.project(default_x0(self.b, self.x0, self.proj))
+        _copy(self.s, _fused_start(self.op, self.b, x_init, self.proj, self.config, free=False))
+        self.passed.zero_()
+        self._operand()
+
+    def _operand(self):
+        mprgp_step.operand(self.sargs, self.b, self.s, self.s.p, self.v, self.prop,
+                           gamma2=self.config.gamma**2)
+        self.psi.copy_(self.s.p)
+        loop_flag.running(self.s.done, self.running)
+
+    def _pass(self):
+        c = self.config
+        mprgp_step.step(self.sargs, self.op.matvec_f64(self.v), self.b, self.s, self.psi,
+                        self.v, self.prop, tol=c.tol, budget=c.max_matvecs,
+                        gamma2=c.gamma**2, tiny=eps_of(self.b))
+        loop_flag.running(self.s.done, self.running)
+        kernels.count(_count_pass)
+
+    def _audit(self):
+        s, resumed, passed, g64 = _audit_claims(self.op, self.proj64, self.b, self.s,
+                                                self.config, self.passed)
+        _copy(self.s, s)
+        self.passed.copy_(passed)
+        self.resumed.copy_(resumed)
+        self.g_audit.copy_(g64)
+        loop_flag.running(~resumed, self.any_resumed)
+
+    def _resume(self):
+        _copy(self.s, _resumed_state(self.proj, self.s, self.resumed, self.g_audit))
+        self._operand()
+
+    def solve(self, run):
+        """One call's loops, each piece run by ``run[name]()``; the host reads
+        the flag a piece writes after it, as the eager loop reads its own.
+        Returns the number of loops."""
+        values, dev = self.flag_values, self.b.device
+
+        def flag(name, i):
+            values[i] = -1
+            run[name]()
+            return host_flag(values, i, dev)
+
+        running, loops = flag("first", 0), 1
+        while True:
+            while running:
+                values[0] = -1
+                with span("ccqppy.mprgp.iter"):
+                    run["pass"]()
+                running = host_flag(values, 0, dev)
+            if self.proj64 is None or not flag("audit", 1):
+                return loops
+            running, loops = flag("resume", 0), loops + 1
+
+    def capture(self):
+        """Capture each piece as a CUDA graph (after an eager run has warmed
+        every kernel)."""
+        global MPRGP_GRAPH_CAPTURES
+        MPRGP_GRAPH_CAPTURES += 1
+        # No graph may be freed while one captures: collect what is garbage.
+        gc.collect()
+        self.graphs = {name: _capture(fn, self.b.device) for name, fn in self.pieces().items()}
+
+    def result(self):
+        """The answer as fresh tensors: a later call overwrites the state."""
+        s = self.s
+        return make_result(s.x.clone(), s.res.clone(), s.mv.clone(), s.it.clone(),
+                           self.config.max_matvecs, s.trace.clone())
+
+
+def _copy(dst, src):
+    """Each field of the state ``src`` into the same field of ``dst``, in place
+    (a field that is the same tensor is left)."""
+    for d, t in zip(dst, src):
+        if d is not t:
+            d.copy_(t)
+
+
+def _cached_solve(loop, op, b, x0, sargs):
+    """The fused loop with the step kernel from the graphs of ``loop``
+    (``_CachedLoop``, from ``_cached_loop``): a call copies b, x0 and the
+    set's mu in and replays the graph of the start, then one of a pass
+    while the flag says a lane runs, then the audit's (and the resume's,
+    while it resumes a lane).  The same kernels run on the same values as
+    in the eager loop, so the answers are its bitwise.  A new loop runs the
+    call's pieces eagerly, which warms every kernel, then captures them for
+    the next call and takes the device's place (the old graphs go after
+    the capture: the pool keeps a graph)."""
+    global MPRGP_CACHED_LOOPS
+    loop.load(op, b, x0, sargs)
+    try:
+        if loop.graphs is not None:
+            MPRGP_CACHED_LOOPS += loop.solve(loop.graphs)
+            return loop.result()
+        loop.solve(loop.pieces())
+        result = loop.result()
+        loop.capture()
+        _LOOPS[b.device] = loop
+        return result
+    finally:
+        loop.op = None
 
 
 class _State(NamedTuple):
@@ -301,13 +595,17 @@ class _State(NamedTuple):
     trace: torch.Tensor
 
 
-def _prepare(A, b, x0, proj):
+def _operands(A, b, proj):
     op = as_operator(A)
     proj = proj if proj is not None else identity()
     if b.dim() != 2:
         raise ValueError(f"b must be (B, n), got {tuple(b.shape)}")
-    x_init = proj.project(default_x0(b, x0, proj))
-    return op, proj, x_init
+    return op, proj
+
+
+def _prepare(A, b, x0, proj):
+    op, proj = _operands(A, b, proj)
+    return op, proj, proj.project(default_x0(b, x0, proj))
 
 
 def _solve(A, b, x0, proj, config, bb_variant):
@@ -525,10 +823,14 @@ def _solve_fused(A, b, x0, proj, config, bb_variant):
     at init (+1 matvec where the first proportioning step is away from the
     initial iterate) and an expansion's residual lands one iteration later.
     Below f64 every claim is audited once the loop ends (``_audit_fused``)."""
-    op, proj, x_init = _prepare(A, b, x0, proj)
+    op, proj = _operands(A, b, proj)
     fixed_exp = bb_variant and config.expansion == "fixed"
-    alpha_bar = lanes(2.0 / op.inf_norm()) if fixed_exp else None
     sargs = _step_args(op, b, proj, config, fixed_exp)
+    loop = None if sargs is None else _cached_loop(op, b, x0, proj, sargs, config)
+    if loop is not None:
+        return _cached_solve(loop, op, b, x0, sargs)
+    x_init = proj.project(default_x0(b, x0, proj))
+    alpha_bar = lanes(2.0 / op.inf_norm()) if fixed_exp else None
     s = _fused_start(op, b, x_init, proj, config, free=sargs is None)
     step = _selected(functools.partial(_fused_body, op=op, b=b, proj=proj, config=config,
                                        fixed_exp=fixed_exp, alpha_bar=alpha_bar))
@@ -578,6 +880,16 @@ def _audit_fused(op, proj, proj64, b, s, config, passed):
     lane resumed: the state's g and p are then left as they are, since no
     lane runs on them) and the lanes that have passed an audit.  Whether
     any lane resumed is the audit's one read on the host."""
+    s, resumed, passed, g64 = _audit_claims(op, proj64, b, s, config, passed)
+    if not any_lane(resumed):
+        return s, None, passed
+    return _resumed_state(proj, s, resumed, g64.to(b.dtype)), resumed, passed
+
+
+def _audit_claims(op, proj64, b, s, config, passed):
+    """``_audit_fused`` up to its read: the state with the claims' audited
+    residuals and matvecs, the lanes to resume, the lanes that have passed
+    an audit, and the audited gradient in f64."""
     budget = config.max_matvecs
     claimed = s.done & ~passed & (s.res < config.tol) & (s.mv < budget)
     g64, res64 = _audit(op, proj64, b, s.x, config.gd)
@@ -585,13 +897,15 @@ def _audit_fused(op, proj, proj64, b, s, config, passed):
     mv = s.mv + claimed.to(s.mv.dtype)
     resumed = claimed & ~under & (mv < budget)
     s = s._replace(res=where_lanes(claimed, res64.to(s.res.dtype), s.res), mv=mv)
-    passed = passed | (claimed & under)
-    if not any_lane(resumed):
-        return s, None, passed
-    g = g64.to(b.dtype)
+    return s, resumed, passed | (claimed & under), g64
+
+
+def _resumed_state(proj, s, resumed, g):
+    """The lanes ``resumed`` go on from x with the audited gradient ``g`` (in
+    b's dtype) and its free part as the direction."""
     psi, _ = proj.free_chopped(s.x, g)
-    return (s._replace(g=where_lanes(resumed, g, s.g), p=where_lanes(resumed, psi, s.p),
-                       done=s.done & ~resumed), resumed, passed)
+    return s._replace(g=where_lanes(resumed, g, s.g), p=where_lanes(resumed, psi, s.p),
+                      done=s.done & ~resumed)
 
 
 def solve(A, b, x0=None, proj=None, config: MPRGPConfig = MPRGPConfig()):

@@ -64,6 +64,8 @@ SIGNATURES = {
     "mprgp_step_lorentz_f64": _MPRGP,
     "pcg_step_box_f32": _PCG,
     "pcg_step_box_f64": _PCG,
+    # loop_flag: done, batch, out.
+    "loop_flag": (_P, _I64, _P, _P),
 }
 
 

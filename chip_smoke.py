@@ -204,8 +204,8 @@ from ccqppy_tpu_torch.models.direct import solve_direct_batched, spd_inverse_bat
 from ccqppy_tpu_torch.models.mprgp import MPRGPBBConfig
 from ccqppy_tpu_torch.models.pcg import PCGConfig
 from ccqppy_tpu_torch.models.spg import SPGConfig
-from ccqppy_tpu_torch.ops import (collectives, gemv, kernels, mprgp_step, pcg_step, sc_step,
-                                  step_common, symv)
+from ccqppy_tpu_torch.ops import (collectives, gemv, kernels, loop_flag, mprgp_step, pcg_step,
+                                  sc_step, step_common, symv)
 from ccqppy_tpu_torch.ops.linop import (BlockSparseOperator, CastDense, DenseOperator,
                                         LinearOperator, MixedPrecDense, ShardedDenseOperator,
                                         SpectralDense, SymmetricPackedDense,
@@ -365,7 +365,8 @@ def zero_counts():
     """Set every kernel's launch count to 0, just before a mode runs."""
     gemv.LAUNCHES = gemv.LAUNCHES_BF16 = gemv.LAUNCHES_F64 = gemv.LAUNCHES_F32_F64 = 0
     sc_step.LAUNCHES = apgd.SC_STEPS_FUSED = apgd.SC_STEPS_EAGER = 0
-    mprgp_step.LAUNCHES = mprgp.MPRGP_ITERS = 0
+    mprgp_step.LAUNCHES = mprgp.MPRGP_ITERS = loop_flag.LAUNCHES = 0
+    mprgp.MPRGP_CACHED_LOOPS = mprgp.MPRGP_GRAPH_CAPTURES = 0
     pcg_step.LAUNCHES = pcg.PCG_STEPS_FUSED = pcg.PCG_STEPS_EAGER = 0
     symv.LAUNCHES.update(dict.fromkeys(symv.LAUNCHES, 0))
     COLLECTIVES.update(dict.fromkeys(COLLECTIVES, 0))
@@ -817,6 +818,51 @@ def print_mprgp_step(out):
           f"{out['sweep_ms']:.4f}), bound {out['bound_ms']:.4f} ms ({out['bound_by']}), eager "
           f"body {out['plain_ms']:.4f} ms; checked over {c['passes']} passes, branches "
           f"{c['branches']}, worst ulps {c['ulps']}, res rel err {c['res_rel_err']:.2e}")
+
+
+def check_loop_flag(dev):
+    """The loop's flag kernel (``ops.loop_flag``) against its plain version
+    ``(~done).any()`` at B = 1 (the cone9999 cell's lane) and B = 1024 (cone
+    run (b)'s), with every lane done, none done, only the first or the last
+    lane running and random lanes, into device memory and into pinned host
+    memory (which the host reads with no call into CUDA); every check is
+    one counted launch.  Times the kernel into device memory at both widths
+    beside the plain version; its bound is the bytes of ``done`` read and
+    the flag written."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    outs = (torch.full((1,), -1, dtype=torch.int64, device=dev),
+            torch.full((1,), -1, dtype=torch.int64, pin_memory=True))
+    before, checks, out, timed = loop_flag.LAUNCHES, 0, {"B": [1, B_CONE]}, {}
+    for B in out["B"]:
+        cases = [torch.ones(B, dtype=torch.bool, device=dev),
+                 torch.zeros(B, dtype=torch.bool, device=dev)]
+        for lane in (0, B - 1):
+            cases.append(cases[0].clone())
+            cases[-1][lane] = False
+        cases += [torch.rand(B, generator=gen, device=dev) < p for p in (0.5, 0.999)]
+        for done in cases:
+            want = int(bool((~done).any()))
+            for flag in outs:
+                flag.fill_(-1)
+                loop_flag.running(done, flag[0])
+                torch.cuda.synchronize()
+                require(int(flag[0]) == want,
+                        f"loop_flag (B={B}, {flag.device.type}): {int(flag[0])}, not {want}")
+                checks += 1
+        timed[B] = cases[-1]
+    require(loop_flag.LAUNCHES - before == checks,
+            f"loop_flag: {loop_flag.LAUNCHES - before} launches for {checks} checks")
+    for B, done in timed.items():
+        out[f"ms_b{B}"] = device_ms(lambda: loop_flag.running(done, outs[0][0]))
+        out[f"plain_ms_b{B}"] = device_ms(lambda: outs[0][0].copy_((~done).any()))
+        out[f"bound_ms_b{B}"], out[f"bound_by_b{B}"] = bound(B + 8, B)
+    out.update(checks=checks, ms=out[f"ms_b{B_CONE}"], plain_ms=out[f"plain_ms_b{B_CONE}"],
+               bound_ms=out[f"bound_ms_b{B_CONE}"], bound_by=out[f"bound_by_b{B_CONE}"])
+    print(f"loop_flag: {checks} checks against (~done).any() at B = 1 and {B_CONE}, into "
+          f"device and pinned host memory; kernel {out['ms_b1']:.4f} / {out['ms']:.4f} ms "
+          f"(B = 1 / {B_CONE}), plain {out['plain_ms_b1']:.4f} / {out['plain_ms']:.4f} ms, "
+          f"bound {out['bound_ms']:.6f} ms ({out['bound_by']})")
+    return out
 
 
 def run_cone_mprgp(As, b, diag, proj, cfg):
@@ -2051,10 +2097,19 @@ def main():
     require(gemv.LAUNCHES_F32_F64 > 0, "cone run (b) launched no (f32, f64) GEMV")
     print(f"cone mprgp_bb: GEMV launches {gemv.LAUNCHES}, {gemv.LAUNCHES_F32_F64} of them "
           f"(f32, f64), {f32_launches()} f32; mprgp_step launches {mprgp_step.LAUNCHES} for "
-          f"{mprgp.MPRGP_ITERS} passes")
+          f"{mprgp.MPRGP_ITERS} passes; loop_flag launches {loop_flag.LAUNCHES}; loops from "
+          f"cached graphs {mprgp.MPRGP_CACHED_LOOPS}, captures {mprgp.MPRGP_GRAPH_CAPTURES}")
     require(mprgp_step.LAUNCHES > mprgp.MPRGP_ITERS > 0,
             "cone run (b): the MPRGP passes did not take the fused step")
-    mp_launches = mprgp_step.LAUNCHES
+    # Phase 1 (the whole stack) repeats each call, so it runs from cached
+    # graphs after one capture, each pass with one flag launch; phase 2 (a
+    # stack made for the call) runs the loop that captures its own graph.
+    require(mprgp.MPRGP_GRAPH_CAPTURES == 1 and mprgp.MPRGP_CACHED_LOOPS >= REPS - 1
+            and loop_flag.LAUNCHES > REPS,
+            "cone run (b): phase 1 did not run from the cached graphs")
+    mp_launches, flag_launches = mprgp_step.LAUNCHES, loop_flag.LAUNCHES
+    flag_out = check_loop_flag(dev)
+    flag_out["launches"] = flag_launches
     cfg_mp = MPRGPBBConfig(tol=TOL_CONE, max_matvecs=BUDGET_CONE)
     mp_999 = check_mprgp_step(As, bs, proj_cone, cfg_mp, passes=MPRGP_CHECK_PASSES[0])
     print_mprgp_step(mp_999)
@@ -2464,7 +2519,9 @@ def main():
          "source": "ccqppy_tpu_torch/csrc/mprgp_step.cu", "replaces": None, **mp_999,
          "n9999": mp_9999},
         {"name": "pcg_step", "route": "cuda",
-         "source": "ccqppy_tpu_torch/csrc/pcg_step.cu", "replaces": None, **pcg_out}]}))
+         "source": "ccqppy_tpu_torch/csrc/pcg_step.cu", "replaces": None, **pcg_out},
+        {"name": "loop_flag", "route": "cuda",
+         "source": "ccqppy_tpu_torch/csrc/loop_flag.cu", "replaces": None, **flag_out}]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the start of main")
     print(smi)
     print(json.dumps({"ok": True, "device": {

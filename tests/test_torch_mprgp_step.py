@@ -4,14 +4,18 @@ CPU: when the fused MPRGP loop takes it.  The predicate is asked with the
 iterate made to look like a CUDA tensor, so that each clause is seen to
 refuse on its own (or, for the sets the kernel takes, to accept).  With the
 kernel stood in for by its plain version (its argument checks, then the
-eager body and its select in place, then the next operand) and the graph's
-replay by the eager loop, whole fused solves on the CPU must give the eager
-solve bitwise.  Card (marked ``cuda``): one step against the eager body
-``mprgp._fused_body`` with its select from one state, with lanes in every
-branch, in f32 with f64 sweeps and in f64; whole solves at (64, 999) and
-(1, 9999) against the eager loop (at n = 9999 over twelve draws of b);
-and the kernels of a replayed pass.  This file imports no JAX: the card
-tests compare with the port's own eager body.
+eager body and its select in place, then the next operand) and the graphs'
+captures and replays by eager runs, whole fused solves on the CPU must give
+the eager solve bitwise, from the graphs cached across calls and from the
+loop that replays a graph of a pass; the cache's key must change with
+everything its graphs read by pointer or bake in.  Card (marked ``cuda``):
+one step against the eager body ``mprgp._fused_body`` with its select from
+one state, with lanes in every branch, in f32 with f64 sweeps and in f64;
+whole solves at (64, 999) and (1, 9999) against the eager loop (at n =
+9999 over twelve draws of b); the cached graphs bitwise against the loop
+that replays a pass; and the kernels of a pass as the profiler sees them.
+This file imports no JAX: the card tests compare with the port's own eager
+body.
 """
 import dataclasses
 
@@ -21,7 +25,7 @@ import torch
 from ccqppy_tpu_torch.models import base, mprgp
 from ccqppy_tpu_torch.models.base import select_lanes, where_lanes
 from ccqppy_tpu_torch.models.mprgp import MPRGPBBConfig, MPRGPConfig
-from ccqppy_tpu_torch.ops import mprgp_step, step_common
+from ccqppy_tpu_torch.ops import gemv, kernels, loop_flag, mprgp_step, step_common
 from ccqppy_tpu_torch.ops.linop import DenseOperator, LinearOperator, ShardedDenseOperator
 from ccqppy_tpu_torch.ops.projections import (LorentzConeProj, ball, blockwise, box,
                                               lorentz_cone, segment_product)
@@ -180,17 +184,24 @@ def plain_pass(proj, config, av, b, s):
     return new, op.seen
 
 
-def _plain_kernel(proj, calls):
+def _kernel_set(sargs):
+    """The set a launch of the kernel reads: Lorentz blocks of ``sargs.d``
+    with the tensor ``sargs.p0`` as mu (one, or one a block)."""
+    return blockwise(LorentzConeProj(sargs.p0), sargs.d, child_axes=0 if sargs.s0 else None)
+
+
+def _plain_kernel(calls):
     """``mprgp_step.step`` and ``operand`` as their plain version, for the
-    CPU: the kernel's argument checks, then the eager body in place (the
-    operand it sweeps must be the ``v`` the last call left, on every
-    running lane), then the next operand."""
+    CPU: the kernel's argument checks, then the eager body in place on the
+    set the launch is given (the operand it sweeps must be the ``v`` the
+    last call left, on every running lane), then the next operand; each
+    call is counted as the wrapper counts a launch."""
     def check(b, s, psi, v, prop, av=None):
         mprgp_step._check(b, (b, s.x, s.g, s.p, s.x_prev, s.g_prev, psi),
                           (v,) if av is None else (av, v), (s.alpha_bb, s.res), (s.mv, s.it),
                           (s.done, s.pending, s.verifying, prop))
 
-    def fill(s, psi, v, prop, gamma2):
+    def fill(proj, s, psi, v, prop, gamma2):
         # The running lanes' psi first: a loop's first launch writes it into
         # p, which the operand reads.
         psi_new, prop_new, _ = plain_operand(proj, s, gamma2)
@@ -201,53 +212,257 @@ def _plain_kernel(proj, calls):
     def operand(sargs, b, s, psi, v, prop, *, gamma2):
         check(b, s, psi, v, prop)
         calls.append("operand")
-        fill(s, psi, v, prop, gamma2)
+        kernels.count(mprgp_step._count)
+        fill(_kernel_set(sargs), s, psi, v, prop, gamma2)
 
     def step(sargs, av, b, s, psi, v, prop, *, tol, budget, gamma2, tiny):
         check(b, s, psi, v, prop, av)
         calls.append("step")
+        kernels.count(mprgp_step._count)
         cfg = MPRGPBBConfig(tol=tol, max_matvecs=budget, gamma=gamma2**0.5)
+        proj = _kernel_set(sargs)
         new, seen = plain_pass(proj, cfg, av, b, s)
         run = ~s.done
         assert torch.equal(seen.double()[run], v[run])
         for t, t_new in zip(s[:-1], new[:-1]):
             t.copy_(t_new)
-        fill(s, psi, v, prop, gamma2)
+        fill(proj, s, psi, v, prop, gamma2)
     return operand, step
 
 
-@pytest.mark.parametrize("case", ["shared_mu_f64", "per_block_mu_f64", "shared_mu_f32",
-                                  "mprgp_f64"])
-def test_fused_loop_on_the_plain_step_is_the_eager_solve(case, monkeypatch):
-    """The fused loop, its kernel stood in for by the plain step and its
-    graph's replays by the eager loop, against the eager loop: the same
-    answers bitwise, one operand launch a loop and one step a pass."""
+LOOP_CASES = ["shared_mu_f64", "per_block_mu_f64", "shared_mu_f32", "mprgp_f64"]
+
+
+def _loop_case(case):
+    """(A, b, a second b, x0, proj, config, solve) of a small problem for each
+    case of the whole-loop tests."""
     dtype = torch.float32 if case.endswith("f32") else torch.float64
     tol = 1e-5 if dtype == torch.float32 else 1e-8
     A, b = problem(30, 4, 23, dtype)
+    b2 = b + 1e-3 * torch.randn(b.shape, generator=torch.Generator().manual_seed(3),
+                                dtype=torch.float64).to(dtype)
     mu = torch.linspace(0.5, 2.0, 10) if case.startswith("per_block") else None
     proj = cone(dtype, per_block=mu)
     x0 = proj.project(-b / A.diagonal(dim1=-2, dim2=-1))
     cfg = (MPRGPConfig if case.startswith("mprgp") else MPRGPBBConfig)(tol=tol,
                                                                         max_matvecs=400)
     solve = mprgp.solve if case.startswith("mprgp") else mprgp.solve_bb
-    want = solve(A, b, x0, proj, cfg)
+    return A, b, b2, x0, proj, cfg, solve
+
+
+def _eager_capture(calls):
+    """``mprgp._capture`` on the CPU: the capture runs ``run()`` once, its
+    launches neither counted nor in ``calls``, as a capture records them; a
+    replay runs it eagerly (its launches counted as it runs)."""
+    def capture(run, device):
+        n = len(calls)
+        with kernels.graph_capture():
+            run()
+        del calls[n:]
+        return run
+    return capture
+
+
+def _loop_counters():
+    return (mprgp.MPRGP_ITERS, mprgp_step.LAUNCHES, mprgp.MPRGP_CACHED_LOOPS,
+            mprgp.MPRGP_GRAPH_CAPTURES, base.HOST_SYNCS)
+
+
+@pytest.mark.parametrize("case", LOOP_CASES)
+def test_fused_loop_on_the_plain_step_is_the_eager_solve(case, monkeypatch):
+    """The fused loop with the step kernel from cached graphs
+    (``_cached_solve``), its kernel stood in for by the plain step and its
+    graphs' replays by eager runs of what they capture, against the eager
+    loop: the same answers bitwise.  The first call misses the cache (it
+    runs eagerly, then captures); a second on another b hits and replays,
+    and so does a third on a new set whose mu is another (the loop solves
+    on its own copy of the set, which each call refreshes).  Each call
+    launches one step a pass and one operand launch a loop (``MPRGP_ITERS``
+    is the passes) and reads a flag a pass and, where it is audited, two a
+    loop, as the eager loop does."""
+    A, b, b2, x0, proj, cfg, solve = _loop_case(case)
+    mu2 = 1.25 * proj.child.mu
+    proj2 = blockwise(LorentzConeProj(mu2), 3, child_axes=0 if mu2.dim() else None)
+    cases = [(b, proj), (b2, proj), (b, proj2)]
+    want = [solve(A, rhs, x0, p, cfg) for rhs, p in cases]
 
     calls = []
-    operand, step = _plain_kernel(proj, calls)
+    operand, step = _plain_kernel(calls)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     monkeypatch.setattr(mprgp_step, "operand", operand)
     monkeypatch.setattr(mprgp_step, "step", step)
+    monkeypatch.setattr(mprgp, "_LOOPS", {})
+    monkeypatch.setattr(mprgp, "_MISSED", {})
+    monkeypatch.setattr(mprgp, "_capture", _eager_capture(calls))
+    for k, ((rhs, p), w) in enumerate(zip(cases, want)):
+        calls.clear()
+        c0 = _loop_counters()
+        got = solve(A, rhs, x0, p, cfg)
+        passes, steps, loops, captures, syncs = (c - c_0 for c, c_0 in
+                                                  zip(_loop_counters(), c0))
+        assert passes == int(got.iterations.max()) > 3 and bool(got.converged.all())
+        assert calls.count("step") == passes and calls[0] == "operand"
+        operands = calls.count("operand")
+        # One operand launch a loop: one loop in f64, one more a resumed audit
+        # in f32.
+        assert operands >= 1 and (b.dtype == torch.float32 or operands == 1)
+        assert steps == passes + operands
+        assert syncs == passes + (2 if b.dtype == torch.float32 else 1) * operands
+        assert (loops, captures) == ((0, 1) if k == 0 else (operands, 0))
+        for name in ("x", "residual", "matvecs", "iterations", "converged"):
+            assert torch.equal(getattr(got, name), getattr(w, name)), name
+    # A later call leaves an earlier answer as it was.
+    first = solve(A, b, x0, proj, cfg)
+    x = first.x.clone()
+    solve(A, b2, x0, proj, cfg)
+    assert torch.equal(first.x, x) and torch.equal(x, want[0].x)
+
+
+@pytest.mark.parametrize("case", LOOP_CASES)
+def test_stepped_loop_on_the_plain_step_is_the_eager_solve(case, monkeypatch):
+    """Where the loop does not run from cached graphs (``_cached_loop`` gives
+    None: a shape met once while another's graphs are kept, or an operator
+    whose sweeps are its own), the fused loop with the step kernel
+    replays a graph of a pass after its first, each pass's flag read on the
+    host.  Its kernel stood in for by the plain step and its graph's replays
+    by the eager loop, it gives the eager solve bitwise: one operand launch
+    a loop and one step a pass."""
+    A, b, _, x0, proj, cfg, solve = _loop_case(case)
+    want = solve(A, b, x0, proj, cfg)
+
+    calls = []
+    operand, step = _plain_kernel(calls)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(mprgp_step, "operand", operand)
+    monkeypatch.setattr(mprgp_step, "step", step)
+    monkeypatch.setattr(mprgp, "_cached_loop", lambda *args: None)
     monkeypatch.setattr(mprgp, "_replay", lambda step_, s: mprgp._fused_loop(step_, s, False))
     it0 = mprgp.MPRGP_ITERS
     got = solve(A, b, x0, proj, cfg)
     passes = mprgp.MPRGP_ITERS - it0
     assert passes == int(got.iterations.max()) > 3 and bool(got.converged.all())
-    # One operand launch a loop: one loop in f64, one more a resumed audit in f32.
     assert calls.count("step") == passes and calls[0] == "operand"
-    assert calls.count("operand") >= 1 and (dtype == torch.float32 or calls.count("operand") == 1)
+    assert calls.count("operand") >= 1 and (b.dtype == torch.float32 or
+                                             calls.count("operand") == 1)
     for name in ("x", "residual", "matvecs", "iterations", "converged"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+#: Sequences of solves and what each must run: "capture" (eagerly, then a
+#: capture that takes the device's place), "hit" (a replay of the kept
+#: graphs) or "stepped" (``_stepped_loop``, its graph the call's own).
+#: "k1" is one solve shape on one stack; "k2" another shape on that stack
+#: (another tol); "t" a shape on a stack made for the call, as phase 2 of a
+#: compacted call has; "k1_dead" the shape of k1 on a new stack once the
+#: first is gone.
+CAPTURE_RULES = {
+    "compacted": [("k1", "capture"), ("t", "stepped"), ("k1", "hit"), ("t", "stepped"),
+                  ("k1", "hit")],
+    "repeats": [("k1", "capture"), ("k2", "stepped"), ("k2", "capture"), ("k2", "hit"),
+                ("k1", "stepped")],
+    "alternates": [("k1", "capture"), ("k2", "stepped"), ("k1", "hit"), ("k2", "stepped"),
+                   ("k1", "hit"), ("k2", "stepped")],
+    "stack_gone": [("k1", "capture"), ("k1_dead", "capture"), ("k1_dead", "hit")],
+    "compacted_behind_another": [("k2", "capture"), ("k1", "stepped"), ("t", "stepped"),
+                                 ("k1", "capture"), ("t", "stepped"), ("k1", "hit")],
+}
+
+
+@pytest.mark.parametrize("rule", sorted(CAPTURE_RULES))
+def test_graphs_are_captured_for_shapes_that_repeat(rule, monkeypatch):
+    """``_cached_loop``'s rule over a sequence of solves, each run whole with
+    the kernel stood in for by the plain step and the graphs by eager runs:
+    a shape captures where no live loop is kept, or where it repeats a miss
+    on the same stack with no hit between; a shape met once runs
+    ``_stepped_loop`` and leaves the kept graphs in place.  Every answer is
+    the eager solve's bitwise, and each outcome shows in the counters."""
+    A, b, _, x0, proj, cfg, solve = _loop_case("shared_mu_f32")
+    cfgs = {"k2": dataclasses.replace(cfg, tol=2 * cfg.tol)}
+    rows = {"t": 2}
+    want = {name: solve(A[:rows.get(name, len(b))], b[:rows.get(name, len(b))],
+                        x0[:rows.get(name, len(b))], proj, cfgs.get(name, cfg))
+            for name in ("k1", "k2", "t")}
+    want["k1_dead"] = want["k1"]
+    stacks = {}
+
+    def stack(name):
+        """k1 and k2 on one stack; t on one made for the call; k1_dead on a
+        second stack, once the first is gone (equal values throughout)."""
+        if name == "t":
+            return A[:2].clone()
+        if name == "k1_dead":
+            stacks.pop("first", None)
+            return stacks.setdefault("second", A.clone())
+        return stacks.setdefault("first", A.clone())
+
+    calls, stepped = [], []
+    operand, step = _plain_kernel(calls)
+
+    def replay(step_, s):
+        stepped.append(s)
+        return mprgp._fused_loop(step_, s, False)
+
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(mprgp_step, "operand", operand)
+    monkeypatch.setattr(mprgp_step, "step", step)
+    monkeypatch.setattr(mprgp, "_LOOPS", {})
+    monkeypatch.setattr(mprgp, "_MISSED", {})
+    monkeypatch.setattr(mprgp, "_capture", _eager_capture(calls))
+    monkeypatch.setattr(mprgp, "_replay", replay)
+    for k, (name, outcome) in enumerate(CAPTURE_RULES[rule]):
+        m = rows.get(name, len(b))
+        c0, n_stepped = _loop_counters(), len(stepped)
+        got = solve(stack(name), b[:m], x0[:m], proj, cfgs.get(name, cfg))
+        _, _, loops, captures, _ = (c - c_0 for c, c_0 in zip(_loop_counters(), c0))
+        ran = ("capture" if captures else "hit" if loops else
+               "stepped" if len(stepped) > n_stepped else "none")
+        assert (ran, captures) == (outcome, int(outcome == "capture")), (k, name)
+        for field in ("x", "residual", "matvecs", "iterations", "converged"):
+            assert torch.equal(getattr(got, field), getattr(want[name], field)), (k, field)
+
+
+KEY_CHANGES = ["same", "mu", "mu_in_place", "A_in_place", "B", "n", "mu_layout", "tol",
+               "budget", "x0"]
+#: Changes the cached graphs serve: b, x0 and mu are copied in at each call.
+KEY_HITS = ["same", "mu", "mu_in_place"]
+
+
+@pytest.mark.parametrize("change", KEY_CHANGES)
+def test_a_change_of_what_the_graphs_read_misses_the_cache(change):
+    """``graph_key`` of a solve against that of the same solve after one
+    change: every change of what the cached graphs read by pointer or bake
+    in (the stack A, its version, B, n, the layout of the set's mu, the
+    config, whether x0 is given) gives another key, a recapture; equal
+    inputs, and a set whose mu is another (its values are copied in at each
+    call), give the same."""
+    B, n, dtype = 3, 12, torch.float32
+
+    def key(A, b, x0, proj, cfg):
+        return mprgp.graph_key(DenseOperator(A), b, x0, step_common.set_args(proj, b), cfg)
+
+    A, b = problem(n, B, 5, dtype)
+    proj, cfg = cone(dtype), MPRGPBBConfig(tol=1e-5, max_matvecs=400)
+    x0 = proj.project(-b / A.diagonal(dim1=-2, dim2=-1))
+    before = key(A, b, x0, proj, cfg)
+    if change == "A_in_place":
+        A.mul_(1.0)
+    elif change in ("B", "n"):
+        A, b = problem(n, B + 1, 5, dtype) if change == "B" else problem(n + 3, B, 5, dtype)
+        x0 = proj.project(-b / A.diagonal(dim1=-2, dim2=-1))
+    elif change == "mu":
+        proj = blockwise(lorentz_cone(0.5, dtype=dtype), 3)
+    elif change == "mu_in_place":
+        proj.child.mu.fill_(0.5)
+    elif change == "mu_layout":
+        proj = cone(dtype, per_block=torch.full((n // 3,), 1.0))
+    elif change == "tol":
+        cfg = dataclasses.replace(cfg, tol=2e-5)
+    elif change == "budget":
+        cfg = dataclasses.replace(cfg, max_matvecs=500)
+    elif change == "x0":
+        x0 = None
+    b = b + 1.0   # b's values are copied in at each call: never part of the key
+    assert (key(A, b, x0, proj, cfg) == before) == (change in KEY_HITS)
 
 
 # ---- on the card ---------------------------------------------------------------
@@ -527,30 +742,119 @@ def _big(dev, n):
     return A, -torch.bmm(A, xu[..., None])[..., 0]
 
 
-@pytest.mark.cuda
-def test_a_replayed_pass_launches_at_most_four_kernels(cuda):
-    """A replayed pass is the GEMV, the step and the flag's two kernels
-    (``~done``, ``any``): in the profiler's device events, at most three
-    kernels lie between two steps of the replays.  In f64, where no audit
-    resumes the loop, the steps are the operand launch, the eager first
-    pass's and one a replay."""
+def _device_kernels(prof):
+    """The names of the profiled device kernels (not copies or fills), in the
+    order they ran."""
     from torch.autograd import DeviceType
 
+    return [name for _, name in sorted(
+        (e.time_range.start, e.name) for e in prof.events()
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+        and not e.name.startswith(("Memcpy", "Memset")))]
+
+
+@pytest.mark.cuda
+def test_a_replayed_pass_launches_at_most_four_kernels(cuda, monkeypatch):
+    """A pass from the cached graphs is the GEMV, the step and the loop's flag
+    kernel: in the profiler's device events, at most two kernels lie
+    between two steps of a call.  In f64, where no audit resumes the loop,
+    the steps are the operand launch and one a pass."""
+    monkeypatch.setattr(mprgp, "_LOOPS", {})
+    monkeypatch.setattr(mprgp, "_MISSED", {})
     A, b = problem(999, 8, 5, torch.float64, cuda)
-    _solve(A, b, 1e-8, 2000)                                  # warm-up
+    _solve(A, b, 1e-8, 2000)                                  # warm-up: the capture
     torch.cuda.synchronize()
-    it0, launches = mprgp.MPRGP_ITERS, mprgp_step.LAUNCHES
+    it0, launches, loops = mprgp.MPRGP_ITERS, mprgp_step.LAUNCHES, mprgp.MPRGP_CACHED_LOOPS
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         _solve(A, b, 1e-8, 2000)
         torch.cuda.synchronize()
     passes = mprgp.MPRGP_ITERS - it0
+    assert mprgp.MPRGP_CACHED_LOOPS - loops == 1
     assert passes > 3 and mprgp_step.LAUNCHES - launches == passes + 1
-    names = [name for _, name in sorted(
-        (e.time_range.start, e.name) for e in prof.events()
-        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-        and not e.name.startswith(("Memcpy", "Memset")))]
+    names = _device_kernels(prof)
     steps = [i for i, name in enumerate(names) if "mprgp_step_kernel" in name]
     assert len(steps) == passes + 1
-    gaps = [j - i - 1 for i, j in zip(steps[2:], steps[3:])]
-    assert max(gaps) <= 3, [names[i:j] for i, j in zip(steps[2:], steps[3:]) if j - i > 4][:2]
+    gaps = [j - i - 1 for i, j in zip(steps[1:], steps[2:])]
+    assert max(gaps) <= 2, [names[i:j] for i, j in zip(steps[1:], steps[2:]) if j - i > 3][:2]
+
+
+@pytest.mark.cuda
+def test_the_profiler_sees_every_launch_of_the_cached_graphs(cuda, monkeypatch):
+    """In f32 at (8, 999), a call that replays the cached graphs: the
+    profiler's (f32 A, f64 x) GEMV kernels are the ``gemv.LAUNCHES_F32_F64``
+    gain, its step kernels the ``mprgp_step.LAUNCHES`` gain and its flag
+    kernels the ``loop_flag.LAUNCHES`` gain, one a pass and two a loop (the
+    loop's first and its audit's); the passes (``MPRGP_ITERS``) are the
+    steps less one operand launch a loop, and the host reads a flag a pass
+    and two a loop."""
+    monkeypatch.setattr(mprgp, "_LOOPS", {})
+    monkeypatch.setattr(mprgp, "_MISSED", {})
+    A, b = problem(999, 8, 6, torch.float32, cuda)
+    _solve(A, b, 1e-5, 20_000)                                # warm-up: the capture
+    torch.cuda.synchronize()
+
+    def counters():
+        return (gemv.LAUNCHES_F32_F64, mprgp_step.LAUNCHES, loop_flag.LAUNCHES,
+                mprgp.MPRGP_ITERS, mprgp.MPRGP_CACHED_LOOPS, mprgp.MPRGP_GRAPH_CAPTURES,
+                base.HOST_SYNCS)
+
+    c0 = counters()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        r = _solve(A, b, 1e-5, 20_000)
+        torch.cuda.synchronize()
+    sweeps, steps, flags, passes, loops, captures, syncs = (
+        c - c_0 for c, c_0 in zip(counters(), c0))
+    _audited_under(A, b, r, 1e-5)
+    names = _device_kernels(prof)
+    assert captures == 0 and loops >= 1 and syncs == passes + 2 * loops
+    assert passes == int(r.iterations.max()) and steps == passes + loops
+    assert flags == passes + 2 * loops
+    assert sum("batched_gemv_kernel<float, double>" in name for name in names) == sweeps > 0
+    assert sum("mprgp_step_kernel" in name for name in names) == steps
+    assert sum("loop_flag_kernel" in name for name in names) == flags
+
+
+@pytest.mark.cuda
+def test_cached_graphs_give_the_replayed_loop_bitwise(cuda, monkeypatch):
+    """Calls through the cached graphs against the loop that replays a graph
+    of a pass after an eager first (``_stepped_loop``, taken where
+    ``_cached_loop`` gives None), on the same inputs: x, the residual, the
+    matvecs, the iterations and the flags bitwise.  Eight fresh b at
+    (1, 9999) after the call that captures, then a (1024, 999) batch: met
+    once while the n = 9999 graphs are kept, it runs ``_stepped_loop``;
+    met again, it captures; then two hits, on b whose audits resume lanes
+    on an H100 (a second loop in the last).  An earlier call's answer is
+    left as it was by every later call."""
+    tol, budget = 1e-5, 20_000
+    monkeypatch.setattr(mprgp, "_LOOPS", {})
+    monkeypatch.setattr(mprgp, "_MISSED", {})
+    A, b0 = _big(cuda, 9999)
+    A8, b8 = problem(999, 1024, 41, torch.float32, cuda)
+
+    def fresh(b, gen):
+        return b + 1e-3 * torch.randn(b.shape, generator=gen, device=cuda)
+
+    gen, gen8 = (torch.Generator(device=cuda).manual_seed(17) for _ in range(2))
+    calls = [(A, fresh(b0, gen)) for _ in range(9)] + [(A8, b8)] + \
+        [(A8, fresh(b8, gen8)) for _ in range(3)]
+    ran = {0: (1, False), 9: (0, False), 10: (1, False)}
+    cached_loop, resumed, kept = mprgp._cached_loop, 0, None
+    for k, (A_k, b) in enumerate(calls):
+        monkeypatch.setattr(mprgp, "_cached_loop", cached_loop)
+        c0 = (mprgp.MPRGP_CACHED_LOOPS, mprgp.MPRGP_GRAPH_CAPTURES)
+        got = _solve(A_k, b, tol, budget)
+        loops, captures = (c - c_0 for c, c_0 in
+                           zip((mprgp.MPRGP_CACHED_LOOPS, mprgp.MPRGP_GRAPH_CAPTURES), c0))
+        assert (captures, loops > 0) == ran.get(k, (0, True)), (k, captures, loops)
+        resumed += loops > 1
+        if k == 1:
+            kept = (got, got.x.clone(), got.matvecs.clone())
+        monkeypatch.setattr(mprgp, "_cached_loop", lambda *args: None)
+        want = _solve(A_k, b, tol, budget)
+        for name in ("x", "residual", "matvecs", "iterations", "converged"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), (k, name)
+        _audited_under(A_k, b, got, tol)
+    assert resumed > 0
+    assert torch.equal(kept[0].x, kept[1]) and torch.equal(kept[0].matvecs, kept[2])

@@ -44,8 +44,8 @@ def test_build_targets_sm_90a_from_repo_sources():
     cmd = kernels.nvcc_command("out.so", kernels.sources())
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert [Path(s).name for s in cmd if s.endswith(".cu")] == [
-        "apgd_sc_step.cu", "batched_gemv.cu", "batched_symv.cu", "mprgp_step.cu",
-        "pcg_step.cu"]
+        "apgd_sc_step.cu", "batched_gemv.cu", "batched_symv.cu", "loop_flag.cu",
+        "mprgp_step.cu", "pcg_step.cu"]
     assert all(Path(s).is_relative_to(ROOT / "ccqppy_tpu_torch" / "csrc")
                for s in cmd if s.endswith(".cu"))
 
